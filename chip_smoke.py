@@ -4,23 +4,41 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  0. build every CUDA kernel of the port from cmx_torch/csrc (nvcc, sm_90a);
-     build the SparK pretraining step as the CLI builds it (task.name=spark,
-     model.fused_conv=True, task.pallas_loss=True, full widths, 256^2, bf16,
-     batch 32, LAMB lr 2e-4 wd 0.04 clip 5) and run one step with the
-     kernel wrappers recording their calls (cmx_torch.ops._build.recorded);
-  1. every recorded call replayed through its public wrapper and through
-     its plain PyTorch version on the same operands: error and tolerance,
-     kernel / plain / library time (CUDA events), and the least time the
-     card could take for the same work (bound);
-  2. the main path: launch counters zeroed, STEPS steps, every kernel's
-     count checked against the recorded calls per step, finite loss and
-     grad norm, step time; a torch.profiler window of two steps (device
-     time by kernel, the device's busy share); then the same step with
-     model.fused_conv=False task.pallas_loss=False (no kernel of the port),
-     timed and profiled the same way;
+  0. build every CUDA kernel of the port from cmx_torch/csrc (nvcc, sm_90a,
+     one process per source, in parallel).
+SparK (task.name=spark, model.fused_conv=True, task.pallas_loss=True, full
+widths, 256^2, bf16, batch 32, LAMB lr 2e-4 wd 0.04 clip 5), as the CLI
+builds it:
+  1. one step with the kernel wrappers recording their calls
+     (cmx_torch.ops._build.recorded); every recorded call replayed through
+     its public wrapper and through its plain PyTorch version on the same
+     operands: error and tolerance, kernel / plain / library time (CUDA
+     events), and the least time the card could take for the same work
+     (bound);
+  2. the main path: launch counters zeroed, SPARK_STEPS steps, every
+     kernel's count checked against the recorded calls per step (K4 none),
+     finite loss and grad norm, step time; a torch.profiler window of two
+     steps (device time by kernel, the device's busy share); then the same
+     step with model.fused_conv=False task.pallas_loss=False (no kernel of
+     the port), timed and profiled the same way;
   3. the fused step against the unfused plain-PyTorch model from the same
      weights and draws (loss and BN running stats within bf16 margins).
+MoCo v2 (PRESETS["moco"] + task.crop_impl=pallas: full widths, 256^2 images,
+224^2 views, bf16, batch MOCO_BATCH, SGD lr 0.03 momentum 0.9 wd 1e-4,
+queue 65536 x 1024, T 0.07):
+  4. one step recorded; its two K4 calls (q and k views) replayed through
+     the wrapper, the plain version and the library yardstick (two torch.bmm
+     on precomputed weights); K4's bound from the non-zero taps of the
+     calls' weights (roofline.crop_work);
+  5. the main path: counters zeroed, MOCO_STEPS steps, each
+     synchronize-bounded and checked (finite loss and grad norm, acc1/acc5
+     in [0, 1], queue_ptr advanced by B mod K, the key encoder equal to the
+     EMA of itself and the updated online encoder, and moved toward it),
+     K4 at 2 launches a step and K1-K3 at none; step time, img/s,
+     peak memory, a two-step profile; then the same run with
+     task.crop_impl=scale_translate (no kernel of the port) from the same
+     weights, queue, images and draws, checked, timed and profiled the same
+     way, its loss equal to the K4 run's step for step (bf16 margin).
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}} last.
@@ -36,9 +54,11 @@ import sys
 import time
 from pathlib import Path
 
-BATCH = 32       # the SparK step's batch on one card
-STEPS = 8        # steps of the main-path run (the first two are warm-up)
-ITERS = 5        # timed launches per kernel measurement
+BATCH = 32        # the SparK step's batch on one card
+SPARK_STEPS = 8   # steps of a SparK run (the first two are warm-up)
+MOCO_BATCH = 256  # the moco preset's batch
+MOCO_STEPS = 8    # steps of a MoCo run (the first two are warm-up)
+ITERS = 5         # timed launches per kernel measurement
 
 
 def fail(msg: str) -> None:
@@ -72,6 +92,7 @@ def rel_err(a, b) -> tuple:
 def kernels():
     """wrapper name -> (wrapper, plain version, route, source, TPU kernel)."""
     from cmx_torch.ops import fused_conv_flat as ff
+    from cmx_torch.ops import pallas_crop as pc
     from cmx_torch.ops import pallas_ops as po
 
     return {
@@ -86,6 +107,9 @@ def kernels():
         "spark_loss_pallas": (
             po.spark_loss_pallas, po.spark_loss_pallas_plain, "triton",
             "cmx_torch/ops/pallas_ops.py", "cmx/ops/pallas_ops.py:68"),
+        "crop_resize_pallas": (
+            pc.crop_resize_pallas, pc.crop_resize_plain, "cuda",
+            "cmx_torch/csrc/crop_resize.cu", "cmx/ops/pallas_crop.py:103"),
     }
 
 
@@ -103,7 +127,8 @@ def make_cfg(batch: int, fused: bool = True):
 
 
 def make_step(cfg):
-    """(state, step, imgs): the CLI's SparK step on the card."""
+    """(state, step, imgs): the CLI's step for `cfg` on the card (a task's
+    `extra` made by its init_extra, as for MoCo)."""
     import torch
 
     from cmx_torch.cli.pretrain import build_task
@@ -112,11 +137,14 @@ def make_step(cfg):
     from cmx_torch.train.trainer import make_train_step
 
     task, model = build_task(cfg, torch.bfloat16, "cuda")
-    tx = make_optimizer(cfg.optim.name, cfg.optim.lr, cfg.optim.weight_decay,
-                        clip_norm=cfg.optim.clip_norm,
+    o = cfg.optim
+    tx = make_optimizer(o.name, o.lr, o.weight_decay, momentum=o.momentum,
+                        clip_norm=o.clip_norm,
                         named_params=model.named_parameters())
-    state = TrainState.create(model=model, tx=tx, seed=cfg.train.seed)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    extra = task.init_extra(gen) if task.init_extra else None
+    state = TrainState.create(model=model, tx=tx, seed=cfg.train.seed,
+                              extra=extra)
     S = cfg.data.image_size
     imgs = torch.randn((cfg.train.batch_size, S, S), generator=gen,
                        device="cuda")
@@ -146,22 +174,21 @@ def stage_of(args) -> tuple:
 
 
 def kernel_phase(calls, iters: int):
-    """Phase 1: every recorded call through its wrapper and its plain
-    version on the same operands."""
+    """Every recorded call through its wrapper and its plain version on the
+    same operands; per kernel name, the sums over the calls (one step's)."""
     import torch
     import torch.nn.functional as F
 
     from cmx_torch.ops import pallas_ops as po
+    from cmx_torch.ops.augment import _resize_weight_mat
     from cmx_torch.utils import roofline as rl
 
-    res = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
-                      flops=0.0, nbytes=0.0) for name in kernels()}
+    res = {}
     for i, (name, args) in enumerate(calls):
         fn, plain = kernels()[name][:2]
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
-        r = res[name]
-        lib_ms = None
+        lib_ms, lib_what = None, ""
         if name == "flat_conv3x3_mask_stats":
             src, w, H, W = args[0], args[2], args[4], args[5]
             B, Cin = src.shape[:2]
@@ -180,6 +207,7 @@ def kernel_phase(calls, iters: int):
             xin = src.reshape(B, Cin, H, W)
             wl = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
             lib_ms = time_ms(lambda: F.conv2d(xin, wl, padding=1), iters)
+            lib_what = "F.conv2d bf16: conv only, does less work"
         elif name == "flat_bwd_mega":
             H, W, Cin, C, need_dx = stage_of(args)
             B = args[1].shape[0]
@@ -196,6 +224,40 @@ def kernel_phase(calls, iters: int):
                         f" bf16)")
             nbytes, flops = rl.conv3x3_bwd_work(B, H, W, Cin, C, need_dx)
             peak = rl.PEAK_BF16
+            gy = args[0].to(torch.bfloat16).reshape(B, C, H, W)
+            xin = args[2].to(torch.bfloat16).reshape(B, Cin, H, W)
+            wl = args[11].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+            lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+                gy, xin, wl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [need_dx, True, False]), iters)
+            lib_what = ("aten.convolution_backward bf16: conv only, does "
+                        "less work")
+        elif name == "crop_resize_pallas":
+            imgs, params, out_size, method = args
+            B, H, W = imgs.shape
+            err, rc = rel_err(out, ref)
+            ok = rc <= 1e-5
+            msg = (f"-> {out_size}^2 {method}: max_abs_err={err:.3e} "
+                   f"rel_err={rc:.3e} (tol 1e-5, fp32 sum order)")
+            peak = rl.PEAK_FP32
+            p = params.float()
+            wyt = _resize_weight_mat(H, out_size, p[:, 0], p[:, 1], method)
+            wyt = wyt.transpose(1, 2).contiguous()  # (B, out, H)
+            wx = _resize_weight_mat(W, out_size, p[:, 2], p[:, 3], method)
+            crop = (B, H, W, out_size, int((wyt != 0).sum()),
+                    int((wx != 0).sum()))
+            nbytes, flops = rl.crop_work(*crop)
+            dense = 2.0 * B * out_size * (H * W + out_size * W)
+            rows = B * out_size
+            msg += (f"; non-zero taps a weight row: {crop[4] / rows:.2f} of "
+                    f"{H} (y), {crop[5] / rows:.2f} of {W} (x); this design's "
+                    f"dense products: {dense / 1e9:.2f} GFLOP, "
+                    f"{1e3 * dense / rl.PEAK_FP32:.4f} ms at the fp32 peak")
+            x = imgs.float().contiguous()
+            lib_ms = time_ms(lambda: torch.bmm(torch.bmm(wyt, x), wx), iters)
+            lib_what = ("two torch.bmm fp32 on precomputed weights: products "
+                        "only, does less work")
+            del wyt, wx
         else:
             rec, imgs, act, patch = args
             B, H, W = imgs.shape
@@ -214,49 +276,75 @@ def kernel_phase(calls, iters: int):
         t_p = time_ms(lambda: plain(*args), n)
         bms, _ = rl.bound_ms(nbytes, flops, peak)
         lib = ("library_ms=null" if lib_ms is None else
-               f"library_ms={lib_ms:.4f} (F.conv2d bf16: conv only, does less "
-               f"work)")
+               f"library_ms={lib_ms:.4f} ({lib_what})")
         print(f"call {i} {name} B={B} {H}x{W} {msg} kernel_ms={t_k:.4f} "
               f"plain_ms={t_p:.4f} {lib} bound_ms={bms:.4f}", flush=True)
         if not ok:
             fail(f"call {i}: {name} disagrees with its plain version")
+        r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                      library_ms=None, flops=0.0, nbytes=0.0,
+                                      peak=peak))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += t_k
         r["plain_ms"] += t_p
         r["flops"] += flops
         r["nbytes"] += nbytes
+        if name == "crop_resize_pallas":
+            r.setdefault("crops", []).append(crop)
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
         del out, ref
     return res
 
 
-def run_steps(state, step, imgs, steps: int, label: str):
-    """Mean step time over steps - 2 steps after 2 warm-up steps; every
-    step's loss and grad norm finite."""
+def run_steps(state, step, imgs, steps: int, label: str, check=None):
+    """(mean step time in ms over the steps after 2 warm-up steps, each
+    step's metrics as floats); every step's loss and grad norm finite.
+    Without `check` the timed steps run back to back, timed as one span.
+    With it each step is bounded by torch.cuda.synchronize() and timed
+    alone: `check()` runs before the step, outside the timed span, and
+    returns the function that checks the step's metrics and the state
+    after it."""
     import torch
 
-    metrics = []
-    t0 = time.perf_counter()
-    for i in range(steps):
-        metrics.append(step(state, imgs))
-        if i == 1:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / (steps - 2) * 1e3
-    for i, m in enumerate(metrics):
+    def report(i, m):
         vals = {k: float(v) for k, v in m.items()}
         print(f"{label} step {i}: "
               + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
         if not (math.isfinite(vals["loss"]) and math.isfinite(vals["grad_norm"])
                 and vals["nonfinite"] == 0.0):
             fail(f"{label} step {i} is not finite: {vals}")
-    B = imgs.shape[0]
+        return vals
+
+    metrics, times = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if check is None:
+            metrics.append(step(state, imgs))
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            continue
+        after = check()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append(report(i, m))
+        after(i, metrics[-1])
+    torch.cuda.synchronize()
+    if check is None:
+        dt = (time.perf_counter() - t0) / (steps - 2) * 1e3
+        metrics = [report(i, m) for i, m in enumerate(metrics)]
+    else:
+        dt = sum(times[2:]) / (steps - 2) * 1e3
+    B, S = imgs.shape[:2]
+    how = "synchronize-bounded steps" if check else "steps back to back"
     print(f"{label}: step_ms={dt:.3f} img_per_s={B / dt * 1e3:.2f} (batch {B}, "
-          f"256^2, bf16, mean of {steps - 2} steps after 2 warm-up steps)",
+          f"{S}^2, bf16, mean of {steps - 2} {how} after 2 warm-up steps)",
           flush=True)
-    return dt
+    return dt, metrics
 
 
 def profile_steps(run_step, n: int, step_ms: float, label: str) -> None:
@@ -291,12 +379,12 @@ def step_phase(state, step, imgs, per_step: dict, steps: int):
     wrappers = {name: k[0] for name, k in kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
-    step_ms = run_steps(state, step, imgs, steps, "fused")
+    step_ms, _ = run_steps(state, step, imgs, steps, "fused")
     launches = {name: fn.launches for name, fn in wrappers.items()}
     expect = {name: per_step.get(name, 0) * steps for name in wrappers}
     print(f"launches in {steps} steps: {launches} (expected from the recorded "
           f"step: {expect})", flush=True)
-    if launches != expect or 0 in launches.values():
+    if launches != expect or 0 in [launches[name] for name in per_step]:
         fail("the step did not run every kernel the expected number of times")
     profile_steps(lambda: step(state, imgs), 2, step_ms, "fused")
     return launches, step_ms
@@ -310,7 +398,7 @@ def unfused_phase(batch: int, steps: int) -> float:
     wrappers = [k[0] for k in kernels().values()]
     before = [fn.launches for fn in wrappers]
     state, step, imgs = make_step(make_cfg(batch, fused=False))
-    step_ms = run_steps(state, step, imgs, steps, "unfused")
+    step_ms, _ = run_steps(state, step, imgs, steps, "unfused")
     if [fn.launches for fn in wrappers] != before:
         fail("the unfused step launched a kernel of the port")
     profile_steps(lambda: step(state, imgs), 2, step_ms, "unfused")
@@ -360,6 +448,135 @@ def reference_phase():
         fail("the fused step disagrees with the plain-PyTorch model")
 
 
+SPARK_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega",
+                 "spark_loss_pallas")
+MOCO_KERNELS = ("crop_resize_pallas",)
+
+
+def make_moco_cfg(batch: int, crop_impl: str):
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.config.presets import PRESETS
+
+    cfg = PRESETS["moco"](Config())
+    apply_overrides(cfg, [f"task.crop_impl={crop_impl}",
+                          f"train.batch_size={batch}", "data.image_size=256"])
+    return cfg
+
+
+def moco_run(state, step, imgs, steps: int, label: str):
+    """run_steps with phase 5's check after each step: acc1/acc5 in [0, 1],
+    queue_ptr advanced by B mod K, the key encoder exactly the EMA (m 0.999)
+    of itself and the updated online encoder, and moved toward it."""
+    import torch
+
+    extra = state.extra
+    key_params = list(extra["key_model"].parameters())
+    online = list(state.model.parameters())
+    K = extra["queue"].shape[0]
+    B = imgs.shape[0]
+    moved = []
+
+    def check():
+        ptr0 = int(extra["queue_ptr"])
+        key0 = [p.detach().clone() for p in key_params]
+
+        def after(i, vals):
+            ptr = int(extra["queue_ptr"])
+            ema_err = dot = gap = 0.0
+            with torch.no_grad():
+                for k1, k0, p in zip(key_params, key0, online):
+                    ema_err = max(ema_err, float(
+                        (k1 - (0.999 * k0 + (1.0 - 0.999) * p)).abs().max()))
+                    # fp64: the key's move along online - key0, 1 - m = 0.001
+                    d = p.double() - k0.double()
+                    dot += float(((k1.double() - k0.double()) * d).sum())
+                    gap += float(d.square().sum())
+            frac = dot / max(gap, 1e-300)
+            gap = math.sqrt(gap)
+            print(f"  queue_ptr {ptr0}->{ptr} |online-key| {gap:.6g} key "
+                  f"moved {frac:.6g} of it (0.001) ema_err={ema_err:.3e}",
+                  flush=True)
+            if not 0.0 <= vals["acc1"] <= vals["acc5"] <= 1.0:
+                fail(f"{label} step {i}: acc1/acc5 out of [0, 1]: {vals}")
+            if ptr != (ptr0 + B) % K:
+                fail(f"{label} step {i}: queue_ptr {ptr0} -> {ptr}, expected "
+                     f"{(ptr0 + B) % K}")
+            # Below a gap of ~0.1 (over ~1.9e7 weights) the EMA's move, 0.001
+            # of the gap, is under the fp32 rounding of the key weights.
+            if ema_err > 1e-6 or (gap > 0.1 and not 5e-4 < frac < 2e-3):
+                fail(f"{label} step {i}: the key encoder is not the EMA (m "
+                     f"0.999) toward the updated online encoder")
+            moved.append(gap > 0.1)
+
+        return after
+
+    dt, metrics = run_steps(state, step, imgs, steps, label, check)
+    if not any(moved):
+        fail(f"{label}: the online encoder never moved 0.1 away from the key "
+             f"encoder, so no step could show the EMA's move")
+    return dt, metrics
+
+
+def moco_phase(batch: int, steps: int, iters: int):
+    """Phases 4-5: MoCo with crop_impl=pallas, then scale_translate."""
+    import torch
+
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    state, step, imgs = make_step(make_moco_cfg(batch, "pallas"))
+    print(f"moco model params: "
+          f"{sum(p.numel() for p in state.model.parameters())}; queue "
+          f"{tuple(state.extra['queue'].shape)}", flush=True)
+    calls = record_step(state, step, imgs)
+    per_step = collections.Counter(name for name, _ in calls)
+    print(f"moco recorded step: kernel calls per step {dict(per_step)}",
+          flush=True)
+    if dict(per_step) != {"crop_resize_pallas": 2}:
+        fail("the MoCo step did not call K4 twice (q and k views)")
+    kern = kernel_phase(calls, iters)
+    del calls
+    torch.cuda.empty_cache()
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = moco_run(state, step, imgs, steps, "moco pallas")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {name: per_step.get(name, 0) * steps for name in wrappers}
+    print(f"moco launches in {steps} steps: {launches} (expected {expect}); "
+          f"peak memory {peak:.2f} GiB (max_memory_allocated)", flush=True)
+    if launches != expect:
+        fail("the MoCo step did not run K4 2 times a step and K1-K3 never")
+    profile_steps(lambda: step(state, imgs), 2, step_ms, "moco pallas")
+    del state, step, imgs
+    torch.cuda.empty_cache()
+
+    # The same run through the plain crop, from the same weights, queue,
+    # images and step draws; its first step stands for the recorded one.
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    state, step, imgs = make_step(make_moco_cfg(batch, "scale_translate"))
+    record_step(state, step, imgs)
+    torch.cuda.reset_peak_memory_stats()
+    base_ms, base = moco_run(state, step, imgs, steps, "moco scale_translate")
+    base_peak = torch.cuda.max_memory_allocated() / 2**30
+    if {name: fn.launches for name, fn in wrappers.items()} != before:
+        fail("the scale_translate MoCo step launched a kernel of the port")
+    profile_steps(lambda: step(state, imgs), 2, base_ms,
+                  "moco scale_translate")
+    d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(losses, base))
+    print(f"moco pallas step_ms={step_ms:.3f} peak {peak:.2f} GiB; "
+          f"scale_translate step_ms={base_ms:.3f} peak {base_peak:.2f} GiB "
+          f"(pallas/scale_translate {step_ms / base_ms:.3f}); loss through "
+          f"K4 against the plain crop step for step: max rel diff "
+          f"{d_loss:.3e} (tol 2e-2, bf16 model)", flush=True)
+    if not d_loss <= 2e-2:
+        fail("the MoCo step through K4 disagrees with the plain crop")
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    return kern, launches
+
+
 def main() -> int:
     import torch
 
@@ -391,6 +608,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
+    t0 = time.perf_counter()
     state, step, imgs = make_step(make_cfg(BATCH))
     print(f"model params: {sum(p.numel() for p in state.model.parameters())}; "
           f"TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -398,40 +616,52 @@ def main() -> int:
     calls = record_step(state, step, imgs)
     per_step = collections.Counter(name for name, _ in calls)
     print(f"recorded step: kernel calls per step {dict(per_step)}", flush=True)
-    missing = set(kernels()) - set(per_step)
-    if missing:
-        fail(f"the step called no {sorted(missing)}")
+    if set(per_step) != set(SPARK_KERNELS):
+        fail(f"the SparK step called {sorted(per_step)}, expected "
+             f"{sorted(SPARK_KERNELS)}")
     stages = [stage_of(args) for name, args in reversed(calls)
               if name == "flat_bwd_mega"]  # the backward runs in reverse
 
     kern = kernel_phase(calls, ITERS)
     del calls
     torch.cuda.empty_cache()
-    launches, step_ms = step_phase(state, step, imgs, per_step, STEPS)
+    spark_launches, step_ms = step_phase(state, step, imgs, per_step,
+                                         SPARK_STEPS)
     del state, step, imgs
     torch.cuda.empty_cache()
-    unfused_ms = unfused_phase(BATCH, STEPS)
+    unfused_ms = unfused_phase(BATCH, SPARK_STEPS)
     print(f"fused step_ms={step_ms:.3f} unfused step_ms={unfused_ms:.3f} "
           f"(fused/unfused {step_ms / unfused_ms:.3f})", flush=True)
     reference_phase()
+    print(f"SparK phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(f"bounds of every TPU kernel's work in one step (batch {BATCH}; "
-          f"stages {stages}):", flush=True)
-    for r in rl.table(BATCH, stages):
+    t0 = time.perf_counter()
+    moco_kern, moco_launches = moco_phase(MOCO_BATCH, MOCO_STEPS, ITERS)
+    kern.update(moco_kern)
+    print(f"MoCo phases took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    crops = kern["crop_resize_pallas"]["crops"]
+    print(f"bounds of every TPU kernel's work in one step (SparK batch {BATCH}; "
+          f"stages {stages}; K4: the recorded MoCo crops {crops}):",
+          flush=True)
+    for r in rl.table(BATCH, stages, crops):
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    launches = {**{n: spark_launches[n] for n in SPARK_KERNELS},
+                **{n: moco_launches[n] for n in MOCO_KERNELS}}
     rows = []
     for name, (_, _, route, source, replaces) in kernels().items():
         k = kern[name]
-        peak = rl.PEAK_FP32 if route == "triton" else rl.PEAK_BF16
-        bms, by = rl.bound_ms(k["nbytes"], k["flops"], peak)
+        bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": k["library_ms"]})
-    print(f"per-step kernel times (ms, sum over one step's launches); "
+    print(f"per-step kernel times (ms, sum over one step's launches: SparK "
+          f"batch {BATCH} for K1-K3, MoCo batch {MOCO_BATCH} for K4; "
+          f"launches: {SPARK_STEPS} SparK / {MOCO_STEPS} MoCo steps); SparK "
           f"step_ms={step_ms:.3f}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,9 @@ conv0.kernel`), so the map is mechanical. Layouts that differ:
     spatial flip (lax.conv_transpose correlates with the kernel as given;
     torch applies the conv-gradient kernel);
   * mask tokens: flax (1,1,1,C) <-> torch (1,C,1,1).
-Leaves are numpy arrays. orbax checkpoints and the encoder.npz export wait
+MoCo's task state crosses the same way: cmx's extra {"key_params",
+"key_batch_stats", "queue", "queue_ptr"} <-> the port's {"key_model",
+"queue", "queue_ptr"}. Leaves are numpy arrays. orbax checkpoints and the encoder.npz export wait
 (ROADMAP: pretrain CLI loop).
 """
 
@@ -98,3 +100,29 @@ def to_flax(module: nn.Module) -> Dict[str, Any]:
     for name, b in module.named_buffers():
         _set(out["batch_stats"], name, b.detach().float().cpu().numpy().copy())
     return out
+
+
+def moco_extra_from_flax(key_module: nn.Module,
+                         extra: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's MoCo `extra` from cmx's: the key encoder's weights loaded
+    into `key_module` (in place; its parameters stop requiring grad), the
+    queue and pointer as tensors on the module's device."""
+    from_flax(key_module, {"params": extra["key_params"],
+                           "batch_stats": extra["key_batch_stats"]})
+    for p in key_module.parameters():
+        p.requires_grad_(False)
+    dev = next(key_module.parameters()).device
+    queue = np.array(extra["queue"], dtype=np.float32)
+    return {"key_model": key_module, "queue": torch.from_numpy(queue).to(dev),
+            "queue_ptr": torch.tensor(int(extra["queue_ptr"]),
+                                      dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def moco_extra_to_flax(extra: Dict[str, Any]) -> Dict[str, Any]:
+    """cmx's MoCo extra tree (numpy leaves) from the port's."""
+    tree = to_flax(extra["key_model"])
+    return {"key_params": tree["params"],
+            "key_batch_stats": tree["batch_stats"],
+            "queue": extra["queue"].detach().float().cpu().numpy().copy(),
+            "queue_ptr": np.int32(int(extra["queue_ptr"]))}

@@ -1,8 +1,10 @@
-"""The 5-level UNet encoder and decoder (port of cmx/models/unet.py:46-145).
+"""The 5-level UNet encoder and decoder (port of cmx/models/unet.py:46-145,
+182-200).
 
 Channel plan 1 -> 64 -> 128 -> 256 -> 512, bottleneck 1024, mirrored
 decoder with skip concat and a 1x1 head. Inputs are (B,H,W) or (B,1,H,W);
-activations are NCHW; logits come out in fp32.
+activations are NCHW; logits come out in fp32. UNetEncoderGAP is MoCo's
+encoder: the encoder and a global average pool to a 1024-d embedding.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from cmx_torch.models.blocks import (Conv, DoubleConv, DownBlock, UpBlock,
-                                     max_pool_2x2)
+                                     max_pool_2x2, reset_parameters)
 
 ENCODER_WIDTHS: Tuple[int, ...] = (64, 128, 256, 512)
 BOTTLENECK_WIDTH: int = 1024
@@ -81,3 +83,23 @@ class UNetDecoder(nn.Module):
         for lvl in range(self.n_levels, 0, -1):
             x = getattr(self, f"up{lvl}")(x, skips[lvl - 1])
         return self.head(x).float()
+
+
+class UNetEncoderGAP(nn.Module):
+    """UNetEncoder (never fused, never masked) then the mean over H and W in
+    fp32: (B,H,W) -> (B, bottleneck) embedding (MoCo's encoder)."""
+
+    def __init__(self, widths: Sequence[int] = ENCODER_WIDTHS,
+                 bottleneck: int = BOTTLENECK_WIDTH,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.emb_dim = bottleneck
+        self.encoder = UNetEncoder(widths, bottleneck, dtype, fused=False)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Random weights from `gen` (flax's initializers)."""
+        reset_parameters(self, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, _ = self.encoder(x)
+        return h.float().mean(dim=(2, 3))

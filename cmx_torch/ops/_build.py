@@ -39,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SIGNATURES = {
     "flat_conv_fwd": {"cmx_flat_conv_fwd": "pppppppp" + "iiiiii" + "p"},
     "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p"},
+    "crop_resize": {"cmx_crop_resize": "pppppp" + "iiiii" + "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

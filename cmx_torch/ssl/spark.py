@@ -18,7 +18,7 @@ from cmx_torch.models.unet import (BOTTLENECK_WIDTH, DOWNSAMPLE_RATIO,
                                    ENCODER_WIDTHS, UNetDecoder, UNetEncoder)
 from cmx_torch.ops.augment import spark_pretrain_aug
 from cmx_torch.ops.masking import spark_active_mask, upsample_mask
-from cmx_torch.train.trainer import Task
+from cmx_torch.train.trainer import Task, TaskAux
 
 
 class SparKModel(nn.Module):
@@ -100,7 +100,7 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
                     mask_ratio: float = 0.6, augment: bool = True,
                     input_size: int = 256, pallas_loss: bool = False
                     ) -> Tuple[Task, SparKModel]:
-    """The SparK task: loss_fn(model, imgs, gen, draws) -> (loss, metrics).
+    """The SparK task: loss_fn(model, imgs, gen, draws) -> (loss, TaskAux).
 
     `draws` may inject the step's random draws, as tests do with cmx's:
     "crop" (B,4) windows, "flip" (B,) bools, "active" (B,f,f); whatever is
@@ -109,7 +109,7 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
     model = model or SparKModel(mask_ratio=mask_ratio)
 
     def loss_fn(model: SparKModel, imgs: torch.Tensor, gen: torch.Generator,
-                draws: Optional[Dict[str, torch.Tensor]] = None):
+                draws: Optional[Dict[str, torch.Tensor]] = None, extra=None):
         draws = draws or {}
         if augment:
             imgs = spark_pretrain_aug(imgs, input_size, gen,
@@ -128,6 +128,6 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
                                                DOWNSAMPLE_RATIO)
         else:
             loss = spark_loss(rec, imgs, active)
-        return loss, {"recon": loss.detach()}
+        return loss, TaskAux(metrics={"recon": loss.detach()})
 
     return Task(name="spark", loss_fn=loss_fn), model

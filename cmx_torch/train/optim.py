@@ -1,7 +1,8 @@
 """Optimizers (port of cmx/train/optim.py:26-110).
 
-Only LAMB is ported (SparK's optimizer); sgd, adamw and lars wait (ROADMAP).
-`Lamb` reproduces cmx's make_optimizer("lamb", ..., clip_norm) exactly:
+LAMB (SparK's optimizer) and SGD (MoCo's) are ported; adamw and lars wait
+(ROADMAP). `Lamb` reproduces cmx's make_optimizer("lamb", ..., clip_norm)
+exactly:
 
   clip_by_global_norm(clip) ->
   optax.lamb = scale_by_adam(b1, b2, eps=1e-6, eps_root=0, bias-corrected)
@@ -10,10 +11,17 @@ Only LAMB is ported (SparK's optimizer); sgd, adamw and lars wait (ROADMAP).
                                             ratio 1 where either norm is 0)
                -> scale by -lr
 
+`Sgd` reproduces make_optimizer("sgd", ..., momentum, clip_norm) with a
+parameter example (the CLI's call):
+
+  clip_by_global_norm(clip) ->
+  add_decayed_weights(wd, no_decay_mask) -> optax.sgd(lr, momentum)
+      = trace: t <- g + momentum * t (nesterov off) -> scale by -lr
+
 lr and wd may be callables of the optimizer's step count (optax's
 inject_hyperparams). The update is computed out of place and committed with
 torch.where(finite, new, old), so a non-finite step keeps parameters and
-optimizer state without a host synchronisation.
+optimizer state (count included) without a host synchronisation.
 """
 
 from __future__ import annotations
@@ -41,6 +49,15 @@ def _value(v: ScalarOrSchedule, count: torch.Tensor):
     return v(count) if callable(v) else v
 
 
+def _clip(grads: List[torch.Tensor], clip_norm: Optional[float]):
+    """optax.clip_by_global_norm: g * clip / |g| where |g| >= clip."""
+    if clip_norm is None:
+        return grads
+    g_norm = global_grad_norm(grads)
+    keep = g_norm < clip_norm
+    return [torch.where(keep, g, (g / g_norm) * clip_norm) for g in grads]
+
+
 class Lamb:
     """LAMB over `named_params` (an iterable of (name, tensor)) with the
     optional global-norm clip chained before it."""
@@ -66,12 +83,7 @@ class Lamb:
              finite: Optional[torch.Tensor] = None) -> None:
         """Apply one update in place; with `finite` False (a 0-d bool
         tensor) parameters and state stay as they were."""
-        grads = [g.float() for g in grads]
-        if self.clip_norm is not None:
-            g_norm = global_grad_norm(grads)
-            keep = g_norm < self.clip_norm
-            grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm)
-                     for g in grads]
+        grads = _clip([g.float() for g in grads], self.clip_norm)
         lr = _value(self.learning_rate, self.count)
         wd = _value(self.weight_decay, self.count)
         count_inc = self.count + 1
@@ -97,16 +109,60 @@ class Lamb:
         self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
+class Sgd:
+    """SGD with momentum over `named_params`; wd * p is added to the
+    gradient where no_decay_mask is True; the optional global-norm clip runs
+    first."""
+
+    def __init__(self, named_params, learning_rate: ScalarOrSchedule,
+                 weight_decay: ScalarOrSchedule = 0.0, *,
+                 momentum: float = 0.9, clip_norm: Optional[float] = None):
+        named = list(named_params)
+        self.params = [p for _, p in named]
+        self.decay = no_decay_mask(named)
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.momentum = momentum
+        self.clip_norm = clip_norm
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.trace = [torch.zeros_like(p, dtype=torch.float32)
+                      for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             finite: Optional[torch.Tensor] = None) -> None:
+        """Apply one update in place; with `finite` False (a 0-d bool
+        tensor) parameters and state stay as they were."""
+        grads = _clip([g.float() for g in grads], self.clip_norm)
+        lr = _value(self.learning_rate, self.count)
+        wd = _value(self.weight_decay, self.count)
+        if finite is None:
+            finite = torch.ones((), dtype=torch.bool, device=self.count.device)
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            pf = p.float()
+            if self.decay[i]:
+                g = g + wd * pf
+            t = g + self.momentum * self.trace[i]
+            new_p = pf + (-lr) * t
+            p.copy_(torch.where(finite, new_p, pf).to(p.dtype))
+            self.trace[i].copy_(torch.where(finite, t, self.trace[i]))
+        self.count.copy_(torch.where(finite, self.count + 1, self.count))
+
+
 def make_optimizer(name: str, learning_rate: ScalarOrSchedule,
                    weight_decay: ScalarOrSchedule = 0.0, *,
-                   clip_norm: Optional[float] = None, named_params=None,
-                   b1: float = 0.9, b2: float = 0.999):
+                   momentum: float = 0.9, clip_norm: Optional[float] = None,
+                   named_params=None, b1: float = 0.9, b2: float = 0.999):
     """The named optimizer over `named_params` (name, tensor) pairs."""
     name = name.lower()
     if name == "lamb":
         return Lamb(named_params, learning_rate, weight_decay, b1=b1, b2=b2,
                     clip_norm=clip_norm)
-    if name in ("sgd", "adamw", "lars"):
+    if name == "sgd":
+        return Sgd(named_params, learning_rate, weight_decay,
+                   momentum=momentum, clip_norm=clip_norm)
+    if name in ("adamw", "lars"):
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP: other "
             "optimizers)")

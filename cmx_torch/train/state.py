@@ -2,8 +2,10 @@
 
 cmx threads one immutable pytree through a jitted step; here the state
 holds the live module (parameters and BN running stats), the optimizer
-(with its state) and the step counter, and the step updates them in place.
-Randomness is keyed by (seed, step) as cmx's fold_in(rng, step).
+(with its state), the step counter and the task-owned `extra` (MoCo: the
+key encoder module, its queue and pointer; None for SparK), and the step
+updates them in place. Randomness is keyed by (seed, step) as cmx's
+fold_in(rng, step).
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ class TrainState:
     model: nn.Module
     opt: Any
     seed: int = 0
+    extra: Any = None  # task-owned state: a dict of tensors and modules
 
     @classmethod
-    def create(cls, *, model: nn.Module, tx: Any, seed: int = 0) -> "TrainState":
-        return cls(step=0, model=model, opt=tx, seed=seed)
+    def create(cls, *, model: nn.Module, tx: Any, seed: int = 0,
+               extra: Any = None) -> "TrainState":
+        return cls(step=0, model=model, opt=tx, seed=seed, extra=extra)
 
     def step_generator(self, device) -> torch.Generator:
         """A generator on `device` seeded from (seed, step): the step's

@@ -2,12 +2,13 @@
 
 bound = max(bytes / memory rate, flops / peak rate of the operands' type),
 counting each input read once and each output written once, from the
-shapes alone. Peaks: NVIDIA H100 SXM data sheet, dense: 3.35 TB/s HBM3,
+shapes (and, for K4, the windows: its work is the non-zero taps of its
+weights). Peaks: NVIDIA H100 SXM data sheet, dense: 3.35 TB/s HBM3,
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32 outside the tensor cores
 (at the full 700 W power limit).
 
-chip_smoke.py computes the bounds from the shapes of the kernel calls it
-records in one SparK step, and prints `table()` of those shapes.
+chip_smoke.py computes the bounds from the kernel calls it records in one
+SparK step and one MoCo step, and prints `table()` of those calls.
 """
 
 from __future__ import annotations
@@ -49,10 +50,20 @@ def spark_loss_work(B, H, W, patch=16) -> Tuple[float, float]:
     return 4.0 * (2 * B * H * W + 2 * cells), 10.0 * B * H * W
 
 
-def crop_work(B, H, W, out) -> Tuple[float, float]:
-    """K4: per image two fp32 products, (out,H)x(H,W) then (out,W)x(W,out)."""
+def crop_work(B, H, W, out, taps_y, taps_x) -> Tuple[float, float]:
+    """K4: reads imgs and params, writes the crops (fp32). Its least work is
+    the non-zero taps of the resample weights (a band: 2-3 a row for a
+    linear window, twice that cubic), so it depends on the windows:
+    taps_y / taps_x count the non-zero entries of all B images' wy (out,H)
+    and wx (out,W). Each tap costs about ten flops to evaluate and one FMA
+    per pixel it scales: a wy tap scales a row of W pixels and a wx tap a
+    column of out rows (y first), or a wx tap a column of H pixels and a wy
+    tap a row of out (x first); the cheaper order counts. The dense
+    products K4 runs today, 2*B*out*(H*W + out*W) flops, are its design's
+    work, not the function's."""
     nbytes = 4.0 * B * (H * W + out * out + 4)
-    return nbytes, 2.0 * B * (out * H * W + out * W * out)
+    fma = min(taps_y * W + taps_x * out, taps_x * H + taps_y * out)
+    return nbytes, 2.0 * fma + 10.0 * (taps_y + taps_x)
 
 
 def bn_relu_mask_work(B, H, W, C) -> Tuple[float, float]:
@@ -66,14 +77,17 @@ def stem_work(B, H, W, C) -> Tuple[float, float]:
     return nbytes, 2.0 * 9 * C * B * H * W
 
 
-def table(B: int, stages: List[Tuple[int, int, int, int, bool]]) -> List[dict]:
+def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
+          crops: List[Tuple[int, int, int, int, float, float]]) -> List[dict]:
     """One row per TPU kernel: the bound of all its launches' work in one
     SparK step at batch B, whose fused DoubleConv stages are `stages`, as
-    (H, W, Cin, Cout, input gradient needed). K4: one MoCo-preset view batch
-    (256 images, 256^2 -> 224^2); K3 the loss at the first stage's (the
-    input's) size; K5 (no caller): the epilogue of the first stage; K6-K8: the same stages through the NHWC kernels of
-    FUSED_IMPL="nhwc" (K6 the Cin=1 stems, K7 the other convs, K8 the
-    backward of stages with Cin >= 8; cmx leaves Cin < 8 to XLA there)."""
+    (H, W, Cin, Cout, input gradient needed). K4: one MoCo step's crop
+    calls, `crops` as crop_work's arguments (B, H, W, out, taps_y, taps_x);
+    K3 the loss at the first stage's (the input's) size; K5 (no caller):
+    the epilogue of the first stage; K6-K8: the same stages through the
+    NHWC kernels of FUSED_IMPL="nhwc" (K6 the Cin=1 stems, K7 the other
+    convs, K8 the backward of stages with Cin >= 8; cmx leaves Cin < 8 to
+    XLA there)."""
     fwd = [conv3x3_fwd_work(B, h, w, ci, c) for h, w, ci, c, _ in stages]
     bwd = [conv3x3_bwd_work(B, h, w, ci, c, dx) for h, w, ci, c, dx in stages]
     h0, w0, _, c0, _ = stages[0]
@@ -81,7 +95,7 @@ def table(B: int, stages: List[Tuple[int, int, int, int, bool]]) -> List[dict]:
         ("K1", "flat_conv3x3_mask_stats", fwd, PEAK_BF16),
         ("K2", "flat_bwd_mega", bwd, PEAK_BF16),
         ("K3", "spark_loss_pallas", [spark_loss_work(B, h0, w0)], PEAK_FP32),
-        ("K4", "crop_resize_pallas", [crop_work(256, 256, 256, 224)],
+        ("K4", "crop_resize_pallas", [crop_work(*c) for c in crops],
          PEAK_FP32),
         ("K5", "bn_relu_mask_pallas", [bn_relu_mask_work(B, h0, w0, c0)],
          PEAK_BF16),

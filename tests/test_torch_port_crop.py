@@ -1,0 +1,192 @@
+"""K4 and the MoCo view pipeline of cmx_torch against cmx, on the CPU.
+
+* `crop_resize_plain` and `crop_resize_pallas`'s CPU path against cmx's
+  `crop_resize_pallas` run in interpret mode (as tests/test_pallas_crop.py
+  runs it): linear and cubic, a downscaling and an upscaling window, H != W,
+  rows outside the image. fp32, relative max error <= 1e-5 of the largest
+  entry. Why not tighter: jitted, cmx's weight formula differs from the same
+  formula run eagerly by an ulp of the sample position (XLA fuses the
+  expression; 1.9e-6 in a weight at 48 taps), which the port reproduces
+  bit for bit; at these sizes the crop moves by up to 5e-6 of its largest
+  entry.
+* The view pipeline's stages alone and `moco_view_aug_batch` whole (K4 and
+  the plain crop), with the draws of cmx's key tree injected into the port
+  (`cmx_view_draws`): blur and noise rel <= 1e-5, the whole view rel <= 1e-5
+  (its error is the crop's).
+* The nearest rotation: cos and sin may differ by an ulp between XLA and
+  torch, which flips round() where a source coordinate lies within ~1e-5 of
+  .5; the share of differing pixels is held to <= 1e-3 (measured: 5 of
+  4.2 million pixels over 64 random angles at 256^2, 0 at this test's
+  seeds).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cmx.ops import augment as ca
+from cmx.ops.pallas_crop import crop_resize_pallas as cmx_crop
+from cmx_torch.ops import augment as ta
+from cmx_torch.ops import pallas_crop as tpc
+
+TOL = 1e-5
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b))) / max(float(np.max(np.abs(b))), 1e-12)
+
+
+def _stage_keys(key, batch):
+    """cmx's per-image stage keys: split(key, B), then split(k_i, 6)."""
+    return jax.vmap(lambda k: jax.random.split(k, 6))(
+        jax.random.split(key, batch))
+
+
+def cmx_view_draws(key, shape, out_size):
+    """The draws cmx's moco_view_aug_batch makes from `key` for a (B,H,W)
+    batch: split(key, B), then split(k_i, 6) per image; stage s draws from
+    ks[:, s] exactly as cmx's stage does (augment.py:686-799, 1013-1052)."""
+    b, h, w = shape
+
+    @jax.jit
+    def draws(key):
+        keys = jax.random.split(key, b)
+        ks = jax.vmap(lambda k: jax.random.split(k, 6))(keys)
+        pair = jax.vmap(lambda k: jax.random.split(k))
+        rot = pair(ks[:, 0])
+        blur = pair(ks[:, 2])
+        noise = pair(ks[:, 5])
+        uni = jax.vmap(jax.random.uniform)
+        return {
+            "angle": jnp.deg2rad(jax.vmap(lambda k: jax.random.uniform(
+                k, minval=-180.0, maxval=180.0))(rot[:, 1])),
+            "rot_apply": uni(rot[:, 0]) < 0.5,
+            "crop": jax.vmap(lambda k: jnp.stack(ca._crop_window_params(
+                k, h, w, out_size, (0.2, 1.0), (3 / 4, 4 / 3))))(ks[:, 1]),
+            "blur_apply": uni(blur[:, 0]) < 0.5,
+            "sigma": jax.vmap(lambda k: jax.random.uniform(
+                k, minval=0.1, maxval=2.0))(blur[:, 1]),
+            "hflip": uni(ks[:, 3]) < 0.5,
+            "vflip": uni(ks[:, 4]) < 0.5,
+            "noise_apply": uni(noise[:, 0]) < 0.5,
+            "noise": jax.vmap(lambda k: jax.random.normal(
+                k, (out_size, out_size), jnp.float32))(noise[:, 1]),
+        }
+
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws(key).items()}
+
+
+# (sy, ty, sx, tx) for a (40, 56) image resampled to 32x32: downscaling,
+# upscaling, a window partly outside the image (zeroed rows), mixed.
+PARAMS = np.array([[32 / 36, -2.0 * 32 / 36, 32 / 50, -3.5 * 32 / 50],
+                   [1.6, -10.0 * 1.6, 2.0, -20.25 * 2.0],
+                   [1.6, 5.0, 0.7, 9.0],
+                   [0.95, -1.3, 1.25, -30.0]], np.float32)
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_crop_resize_plain_and_cpu_path_match_pallas(method):
+    rng = np.random.default_rng(0)
+    imgs = rng.normal(size=(4, 40, 56)).astype(np.float32)
+    ref = np.asarray(cmx_crop(jnp.asarray(imgs), jnp.asarray(PARAMS), 32,
+                              method=method, interpret=True))
+    assert np.all(ref[2, :3] == 0.0)  # rows sampled above the image
+    n0 = tpc.crop_resize_pallas.launches
+    for fn in (tpc.crop_resize_plain, tpc.crop_resize_pallas):
+        got = fn(torch.from_numpy(imgs), torch.from_numpy(PARAMS), 32, method)
+        assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+        assert _rel(got.numpy(), ref) <= TOL, (fn.__name__, _rel(got, ref))
+    assert tpc.crop_resize_pallas.launches == n0  # the CPU path launches none
+
+
+def test_crop_resize_refuses_bad_operands():
+    imgs = torch.zeros((2, 8, 8))
+    with pytest.raises(ValueError):
+        tpc.crop_resize_pallas(imgs, torch.zeros((3, 4)), 4)
+    with pytest.raises(ValueError):
+        tpc.crop_resize_pallas(imgs, torch.zeros((2, 4)), 4, "lanczos3")
+
+
+@pytest.mark.parametrize("method,radius", [("linear", 1), ("cubic", 2)])
+def test_crop_weights_are_a_band_at_moco_windows(method, radius):
+    """K4's bound (roofline.crop_work) counts the non-zero taps: at MoCo's
+    windows each weight row has at most ceil(2 * radius * max(1/s, 1)) + 1
+    of them, a few of the 256 the dense products multiply."""
+    gen = torch.Generator().manual_seed(0)
+    p = ta._crop_window_params(gen, 64, 256, 256, 224, ta.MOCO_SCALE,
+                               ta.MOCO_RATIO)
+    for s, t in ((p[:, 0], p[:, 1]), (p[:, 2], p[:, 3])):
+        taps = (ta._resize_weight_mat(256, 224, s, t, method) != 0).sum(1)
+        most = torch.ceil(2 * radius * torch.clamp(1 / s, min=1.0)) + 1
+        assert bool((taps <= most[:, None]).all())
+        assert int(taps.max()) <= (4 if method == "linear" else 6)
+
+
+def test_batch_rotate_nearest_matches_cmx():
+    rng = np.random.default_rng(1)
+    imgs = rng.normal(size=(6, 48, 40)).astype(np.float32)
+    key = jax.random.key(3)
+    ks = _stage_keys(key, imgs.shape[0])
+    ref = np.asarray(jax.jit(lambda k, x: ca.batch_rotate_nearest(
+        k, x, 180.0, p=0.5))(ks[:, 0], imgs))
+    d = cmx_view_draws(key, imgs.shape, 32)
+    assert d["rot_apply"].any() and not d["rot_apply"].all()
+    got = ta.batch_rotate_nearest(torch.from_numpy(imgs), d["angle"],
+                                  d["rot_apply"]).numpy()
+    assert np.mean(got != ref) <= 1e-3
+
+
+def test_gaussian_blur_matches_cmx():
+    rng = np.random.default_rng(2)
+    imgs = rng.normal(size=(6, 24, 20)).astype(np.float32)
+    key = jax.random.key(4)
+    ks = _stage_keys(key, imgs.shape[0])
+    ref = np.asarray(jax.jit(jax.vmap(lambda k, x: ca.gaussian_blur(
+        k, x, sigma_range=(0.1, 2.0), radius=3, p=0.5)))(ks[:, 2], imgs))
+    d = cmx_view_draws(key, imgs.shape, 20)
+    assert d["blur_apply"].any() and not d["blur_apply"].all()
+    got = ta.gaussian_blur(torch.from_numpy(imgs), d["sigma"],
+                           d["blur_apply"], 3).numpy()
+    assert _rel(got, ref) <= TOL
+
+
+def test_gaussian_noise_max10_matches_cmx():
+    rng = np.random.default_rng(3)
+    imgs = rng.normal(size=(6, 16, 16)).astype(np.float32)
+    key = jax.random.key(5)
+    ks = _stage_keys(key, imgs.shape[0])
+    ref = np.asarray(jax.jit(jax.vmap(lambda k, x: ca.gaussian_noise_max10(
+        k, x, p=0.5)))(ks[:, 5], imgs))
+    d = cmx_view_draws(key, imgs.shape, 16)
+    assert d["noise_apply"].any() and not d["noise_apply"].all()
+    got = ta.gaussian_noise_max10(torch.from_numpy(imgs), d["noise"],
+                                  d["noise_apply"]).numpy()
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("crop_impl", ["pallas", "scale_translate"])
+def test_moco_view_aug_batch_matches_cmx(crop_impl):
+    rng = np.random.default_rng(4)
+    imgs = rng.normal(size=(6, 48, 48)).astype(np.float32) + 1.0
+    key = jax.random.key(6)
+    ref = np.asarray(jax.jit(lambda k, x: ca.moco_view_aug_batch(
+        k, x, 32, "nearest", "linear", crop_impl))(key, imgs))
+    d = cmx_view_draws(key, imgs.shape, 32)
+    got = ta.moco_view_aug_batch(torch.from_numpy(imgs), 32, "nearest",
+                                 "linear", crop_impl, draws=d)
+    assert tuple(got.shape) == ref.shape == (6, 32, 32)
+    assert _rel(got.numpy(), ref) <= TOL
+
+
+@pytest.mark.parametrize("kwargs", [dict(rotation_method="shear3"),
+                                    dict(rotation_method="bilinear"),
+                                    dict(crop_impl="bank"),
+                                    dict(crop_impl="bank_fused")])
+def test_moco_view_options_not_ported_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ta.moco_view_aug_batch(torch.zeros((2, 32, 32)), 16,
+                               gen=torch.Generator(), **kwargs)

@@ -9,7 +9,9 @@ Shapes here are small and deliberately ragged (Cin not a multiple of the
 staging chunk, Cout not a multiple of the channel tile) to exercise the
 bounds checks; the main path's full-width shapes are covered by
 chip_smoke.py. Tolerances: bf16 outputs rel 1e-2 of the largest entry (a
-one-ulp bf16 rounding flip), fp32 sums rel 1e-3 (summation order).
+one-ulp bf16 rounding flip), fp32 sums rel 1e-3 (summation order); the
+fp32 crop (K4) rel 1e-5 (its weights equal the plain version's op for op;
+the products sum in another order).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from cmx_torch.ops import fused_conv_flat as ff
+from cmx_torch.ops import pallas_crop as pc
 from cmx_torch.ops import pallas_ops as po
 
 
@@ -151,3 +154,22 @@ def test_wrappers_refuse_operands_on_another_device(dev):
     imgs = torch.zeros((1, 32, 32), device=dev)
     with pytest.raises(ValueError):
         po.spark_loss_pallas(imgs, imgs, torch.zeros((1, 2, 2)))
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("B,H,W,out", [(3, 40, 56, 32), (2, 256, 256, 224)])
+def test_crop_resize_kernel_matches_plain(dev, B, H, W, out, method):
+    from cmx_torch.ops.augment import _crop_window_params
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    imgs = torch.randn((B, H, W), generator=g, device=dev)
+    params = _crop_window_params(g, B, H, W, out, (0.2, 1.0), (3 / 4, 4 / 3))
+    params[0] = torch.tensor([1.6, 5.0, 0.7, 9.0], device=dev)  # rows outside
+    n0 = pc.crop_resize_pallas.launches
+    got = pc.crop_resize_pallas(imgs, params, out, method)
+    ref = pc.crop_resize_plain(imgs, params, out, method)
+    torch.cuda.synchronize()
+    assert pc.crop_resize_pallas.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) <= 1e-5
+    assert bool((got[0, :3] == 0).all())

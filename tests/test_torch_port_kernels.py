@@ -249,7 +249,8 @@ def test_recording_replays_each_kernel_call(fp32):
 
 def test_roofline_table_has_a_row_per_pallas_kernel():
     """cmx_torch.utils.roofline bounds every function of cmx that reaches
-    pl.pallas_call (K1-K8), and K1-K3's bounds follow their shapes."""
+    pl.pallas_call (K1-K8), and K1-K4's bounds follow their shapes (K4:
+    the two view batches of one MoCo step and their non-zero taps)."""
     from pathlib import Path
 
     from cmx_torch.utils import roofline as rl
@@ -258,11 +259,20 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
     calls = sum(p.read_text().count("pl.pallas_call(") for p in root.glob("*.py"))
     stages = [(256, 256, 1, 64, False), (256, 256, 64, 64, True),
               (128, 128, 64, 128, True), (128, 128, 128, 128, True)]
-    rows = rl.table(32, stages)
+    taps = 256 * 224 * 3  # 3 non-zero taps a weight row
+    crop = (256, 256, 256, 224, taps, taps)
+    rows = rl.table(32, stages, [crop] * 2)
     assert calls == len(rows) == 8
     assert [r["kernel"] for r in rows] == [f"K{i}" for i in range(1, 9)]
-    assert [r["launches"] for r in rows] == [4, 4, 1, 1, 1, 1, 3, 3]
+    assert [r["launches"] for r in rows] == [4, 4, 1, 2, 1, 1, 3, 3]
     assert all(r["bound_ms"] > 0 for r in rows)
+    nb, fl = rl.crop_work(*crop)
+    assert nb == 4 * 256 * (256 * 256 + 224 * 224 + 4)
+    assert fl == 2 * taps * (256 + 224) + 10 * 2 * taps
+    assert rows[3]["flops"] == 2 * fl and rows[3]["bound_by"] == "bytes"
+    assert rl.table(32, stages, [crop])[3]["flops"] == fl
+    # the cheaper order of the two products counts
+    assert rl.crop_work(1, 256, 64, 224, 10, 10)[1] == 2 * 10 * (64 + 224) + 200
     b, f = rl.conv3x3_fwd_work(32, 256, 256, 64, 64)
     assert f == 2 * 9 * 64 * 64 * 32 * 256 * 256
     assert rl.bound_ms(b, f, rl.PEAK_BF16) == (

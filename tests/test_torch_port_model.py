@@ -325,7 +325,7 @@ def test_build_task_spark_and_gates():
     assert not model.encoder.bottleneck.fused
     assert not model.decoder.up1.double_conv.fused
     assert sum(p.numel() for p in model.parameters()) == 31_048_321
-    for name in ("genesis", "mae", "moco", "cmunet"):
+    for name in ("genesis", "mae", "cmunet"):
         cfg.task.name = name
         with pytest.raises(NotImplementedError):
             build_task(cfg, torch.bfloat16, device="cpu")
