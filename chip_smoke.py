@@ -18,11 +18,27 @@ builds it:
   2. the main path: launch counters zeroed, SPARK_STEPS steps, every
      kernel's count checked against the recorded calls per step (K4 none),
      finite loss and grad norm, step time; a torch.profiler window of two
-     steps (device time by kernel, the device's busy share); then the same
+     steps (device time by kernel, the device's busy share, the port's
+     kernels against everything else, the device time inside the fused
+     DoubleConv's autograd ranges); then the same
      step with model.fused_conv=False task.pallas_loss=False (no kernel of
      the port), timed and profiled the same way;
   3. the fused step against the unfused plain-PyTorch model from the same
      weights and draws (loss and BN running stats within bf16 margins).
+The same SparK step with cmx_torch.ops.fused_conv.FUSED_IMPL="nhwc" (the
+NHWC strip kernels K6-K8 in place of K1/K2):
+  A. one step recorded: exactly K6 1, K7 3, K8 3, K3 1 calls, its loss
+     within 1e-3 of the flat step's recorded first step (same weights,
+     images and draws); every call replayed as in phase 1, the library
+     yardsticks F.conv2d bf16 (K6 on the (B,1,H,W) image, K7 channels_last)
+     and aten.convolution_backward bf16 channels_last (K8);
+  K5. bn_relu_mask_pallas (no caller on any path) driven once on the
+     operands of the recorded pre-norm K7 call at down1 (src, inv, shift,
+     mask), held to its plain version, timed, library null;
+  B. counters zeroed, SPARK_STEPS steps, launches K6 1, K7 3, K8 3, K3 1
+     a step and K1, K2, K4, K5 none, finite, step time and img/s beside the
+     flat fused and unfused steps, a two-step profile;
+  the NHWC model against the plain model as in phase 3.
 MoCo v2 (PRESETS["moco"] + task.crop_impl=pallas: full widths, 256^2 images,
 224^2 views, bf16, batch MOCO_BATCH, SGD lr 0.03 momentum 0.9 wd 1e-4,
 queue 65536 x 1024, T 0.07):
@@ -39,9 +55,10 @@ queue 65536 x 1024, T 0.07):
      task.crop_impl=scale_translate (no kernel of the port) from the same
      weights, queue, images and draws, checked, timed and profiled the same
      way, its loss equal to the K4 run's step for step (bf16 margin).
-Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
-as JSON, the card's name and power limit (nvidia-smi), and
-{"ok": true, "device": {...}} last.
+FUSED_IMPL is set back to "flat" after the NHWC phases. Then the K1-K8
+bounds at the recorded shapes, and three lines: the kernels as JSON, the
+card's name and power limit (nvidia-smi), and {"ok": true, "device": {...}}
+last.
 """
 
 from __future__ import annotations
@@ -91,6 +108,7 @@ def rel_err(a, b) -> tuple:
 
 def kernels():
     """wrapper name -> (wrapper, plain version, route, source, TPU kernel)."""
+    from cmx_torch.ops import fused_conv as fc
     from cmx_torch.ops import fused_conv_flat as ff
     from cmx_torch.ops import pallas_crop as pc
     from cmx_torch.ops import pallas_ops as po
@@ -110,6 +128,18 @@ def kernels():
         "crop_resize_pallas": (
             pc.crop_resize_pallas, pc.crop_resize_plain, "cuda",
             "cmx_torch/csrc/crop_resize.cu", "cmx/ops/pallas_crop.py:103"),
+        "bn_relu_mask_pallas": (
+            po.bn_relu_mask_pallas, po.bn_relu_mask_plain, "triton",
+            "cmx_torch/ops/pallas_ops.py", "cmx/ops/pallas_ops.py:163"),
+        "conv_stem_stats": (
+            fc.conv_stem_stats, fc.conv_stem_stats_plain, "cuda",
+            "cmx_torch/csrc/nhwc_conv_fwd.cu", "cmx/ops/fused_conv.py:110"),
+        "conv3x3_mask_stats": (
+            fc.conv3x3_mask_stats, fc.conv3x3_mask_stats_plain, "cuda",
+            "cmx_torch/csrc/nhwc_conv_fwd.cu", "cmx/ops/fused_conv.py:239"),
+        "bwd_mega": (
+            fc.bwd_mega, fc.bwd_mega_plain, "cuda",
+            "cmx_torch/csrc/nhwc_conv_bwd.cu", "cmx/ops/fused_conv.py:354"),
     }
 
 
@@ -152,17 +182,18 @@ def make_step(cfg):
 
 
 def record_step(state, step, imgs):
-    """One step with the wrappers recording their calls (also the warm-up
-    that compiles the Triton kernel)."""
+    """(the recorded kernel calls, the step's loss): one step with the
+    wrappers recording their calls (also the warm-up that compiles the
+    Triton kernel)."""
     import torch
 
     from cmx_torch.ops import _build
 
     _build.recorded = []
     try:
-        step(state, imgs)
+        m = step(state, imgs)
         torch.cuda.synchronize()
-        return _build.recorded
+        return _build.recorded, float(m["loss"])
     finally:
         _build.recorded = None
 
@@ -171,6 +202,38 @@ def stage_of(args) -> tuple:
     """(H, W, Cin, Cout, need_dx) of a recorded flat_bwd_mega call."""
     y, src, H, W, need_dx = args[1], args[2], args[12], args[13], args[15]
     return H, W, src.shape[1], y.shape[1], need_dx
+
+
+def nhwc_shape(name, args) -> tuple:
+    """(H, W, Cin, Cout) of a recorded K6, K7 or K8 call (NHWC operands)."""
+    if name == "conv_stem_stats":
+        return (*args[0].shape[1:3], 1, args[2].shape[1])
+    if name == "conv3x3_mask_stats":
+        return (*args[0].shape[1:], args[2].shape[3])
+    return (*args[1].shape[1:3], args[2].shape[3], args[1].shape[3])
+
+
+def conv_check(out, ref):
+    """(ok, max abs error, message) of a (y, sum, sumsq) forward call."""
+    ey, ry = rel_err(out[0], ref[0])
+    _, rs = rel_err(out[1], ref[1])
+    _, rq = rel_err(out[2], ref[2])
+    msg = (f"y max_abs_err={ey:.3e} rel_err={ry:.3e} (tol 1e-2, bf16 store) "
+           f"sum rel_err={rs:.3e} sumsq rel_err={rq:.3e} (tol 1e-3, sum "
+           f"order)")
+    return ry <= 1e-2 and rs <= 1e-3 and rq <= 1e-3, ey, msg
+
+
+def bwd_check(out, ref, need_dx):
+    """(ok, max abs error, message) of a (dX, dW) backward call."""
+    ew, rw = rel_err(out[1], ref[1])
+    ok, err = rw <= 1e-3, ew
+    msg = f"dW max_abs_err={ew:.3e} rel_err={rw:.3e} (tol 1e-3, sum order)"
+    if need_dx:
+        eh, rh = rel_err(out[0], ref[0])
+        ok = ok and rh <= 1e-2
+        msg += f" dX max_abs_err={eh:.3e} rel_err={rh:.3e} (tol 1e-2, bf16)"
+    return ok, err, msg
 
 
 def kernel_phase(calls, iters: int):
@@ -183,55 +246,81 @@ def kernel_phase(calls, iters: int):
     from cmx_torch.ops.augment import _resize_weight_mat
     from cmx_torch.utils import roofline as rl
 
+    bf16, cl = torch.bfloat16, torch.channels_last
+    conv_what = "F.conv2d bf16: conv only, does less work"
+    bwd_what = "aten.convolution_backward bf16: conv only, does less work"
     res = {}
     for i, (name, args) in enumerate(calls):
         fn, plain = kernels()[name][:2]
         out, ref = fn(*args), plain(*args)
         torch.cuda.synchronize()
-        lib_ms, lib_what = None, ""
+        lib_ms, lib_what, peak = None, "", rl.PEAK_BF16
         if name == "flat_conv3x3_mask_stats":
             src, w, H, W = args[0], args[2], args[4], args[5]
             B, Cin = src.shape[:2]
             C = w.shape[3]
-            ey, ry = rel_err(out[0], ref[0])
-            _, rs = rel_err(out[1], ref[1])
-            _, rq = rel_err(out[2], ref[2])
-            ok = ry <= 1e-2 and rs <= 1e-3 and rq <= 1e-3
-            err = ey
-            msg = (f"{Cin}->{C} pre_norm={args[6] is not None}: y "
-                   f"max_abs_err={ey:.3e} rel_err={ry:.3e} (tol 1e-2, bf16 "
-                   f"store) sum rel_err={rs:.3e} sumsq rel_err={rq:.3e} (tol "
-                   f"1e-3, sum order)")
+            ok, err, msg = conv_check(out, ref)
+            msg = f"{Cin}->{C} pre_norm={args[6] is not None}: {msg}"
             nbytes, flops = rl.conv3x3_fwd_work(B, H, W, Cin, C)
-            peak = rl.PEAK_BF16
             xin = src.reshape(B, Cin, H, W)
-            wl = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+            wl = w.permute(3, 2, 0, 1).to(bf16).contiguous()
             lib_ms = time_ms(lambda: F.conv2d(xin, wl, padding=1), iters)
-            lib_what = "F.conv2d bf16: conv only, does less work"
-        elif name == "flat_bwd_mega":
-            H, W, Cin, C, need_dx = stage_of(args)
-            B = args[1].shape[0]
-            ew, rw = rel_err(out[1], ref[1])
-            ok = rw <= 1e-3
-            err = ew
-            msg = (f"{Cin}->{C} pre_h={args[14] is not None} need_dx="
-                   f"{need_dx}: dW max_abs_err={ew:.3e} rel_err={rw:.3e} "
-                   f"(tol 1e-3, sum order)")
-            if need_dx:
-                eh, rh = rel_err(out[0], ref[0])
-                ok = ok and rh <= 1e-2
-                msg += (f" dX max_abs_err={eh:.3e} rel_err={rh:.3e} (tol 1e-2,"
-                        f" bf16)")
+            lib_what = conv_what
+        elif name in ("conv_stem_stats", "conv3x3_mask_stats"):
+            H, W, Cin, C = nhwc_shape(name, args)
+            B = args[0].shape[0]
+            ok, err, msg = conv_check(out, ref)
+            if name == "conv_stem_stats":
+                msg = f"1->{C} 9-tap patches: {msg}"
+                nbytes, flops = rl.stem_work(B, H, W, C)
+                xin = args[0][..., 4][:, None].contiguous()  # the image
+                wl = args[2].t().reshape(C, 1, 3, 3).to(bf16).contiguous()
+                lib_what = ("F.conv2d bf16 on the (B,1,H,W) image: conv only, "
+                            "does less work")
+            else:
+                msg = f"{Cin}->{C} pre_norm={args[4] is not None}: {msg}"
+                nbytes, flops = rl.conv3x3_fwd_work(B, H, W, Cin, C)
+                xin = args[0].permute(0, 3, 1, 2)  # a channels_last view
+                wl = args[2].permute(3, 2, 0, 1).to(bf16).contiguous(
+                    memory_format=cl)
+                lib_what = ("F.conv2d bf16 channels_last: conv only, does less "
+                            "work")
+            lib_ms = time_ms(lambda: F.conv2d(xin, wl, padding=1), iters)
+        elif name in ("flat_bwd_mega", "bwd_mega"):
+            if name == "flat_bwd_mega":
+                H, W, Cin, C, need_dx = stage_of(args)
+                B = args[1].shape[0]
+                pre = args[14] is not None
+                gy = args[0].to(bf16).reshape(B, C, H, W)
+                xin = args[2].to(bf16).reshape(B, Cin, H, W)
+                wl = args[11].permute(3, 2, 0, 1).to(bf16).contiguous()
+                what, extra = bwd_what, ""
+            else:
+                H, W, Cin, C = nhwc_shape(name, args)
+                B, need_dx = args[1].shape[0], True
+                pre = args[12] is not None
+                gy = args[0].to(bf16).permute(0, 3, 1, 2)
+                xin = args[2].to(bf16).permute(0, 3, 1, 2)
+                wl = args[11].permute(3, 2, 0, 1).to(bf16).contiguous(
+                    memory_format=cl)
+                what = "channels_last " + bwd_what
+                extra = f"g NHWC-contiguous={args[0].is_contiguous()} "
+            ok, err, msg = bwd_check(out, ref, need_dx)
+            msg = f"{Cin}->{C} pre_h={pre} need_dx={need_dx}: {extra}{msg}"
             nbytes, flops = rl.conv3x3_bwd_work(B, H, W, Cin, C, need_dx)
-            peak = rl.PEAK_BF16
-            gy = args[0].to(torch.bfloat16).reshape(B, C, H, W)
-            xin = args[2].to(torch.bfloat16).reshape(B, Cin, H, W)
-            wl = args[11].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
             lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
                 gy, xin, wl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
                 [need_dx, True, False]), iters)
-            lib_what = ("aten.convolution_backward bf16: conv only, does "
-                        "less work")
+            lib_what = what
+        elif name == "bn_relu_mask_pallas":
+            B, H, W, C = args[0].shape
+            err, rc = rel_err(out, ref)
+            ok = rc <= 1e-2
+            msg = (f"(B,H,W,{C}) {args[0].dtype}: max_abs_err={err:.3e} "
+                   f"rel_err={rc:.3e} (tol 1e-2, one bf16 ulp: Triton fuses "
+                   f"x*scale+bias into one FMA)")
+            nbytes, flops = rl.bn_relu_mask_work(B, H, W, C)
+            peak = rl.PEAK_FP32
         elif name == "crop_resize_pallas":
             imgs, params, out_size, method = args
             B, H, W = imgs.shape
@@ -271,7 +360,8 @@ def kernel_phase(calls, iters: int):
                    f"sum order)")
             nbytes, flops = rl.spark_loss_work(B, H, W, patch)
             peak = rl.PEAK_FP32
-        n = iters * (4 if name == "spark_loss_pallas" else 1)  # short kernel
+        short = name in ("spark_loss_pallas", "bn_relu_mask_pallas")
+        n = iters * (4 if short else 1)
         t_k = time_ms(lambda: fn(*args), n)
         t_p = time_ms(lambda: plain(*args), n)
         bms, _ = rl.bound_ms(nbytes, flops, peak)
@@ -347,9 +437,36 @@ def run_steps(state, step, imgs, steps: int, label: str, check=None):
     return dt, metrics
 
 
-def profile_steps(run_step, n: int, step_ms: float, label: str) -> None:
+# Device kernels of the port (CUDA kernels in cmx_torch/csrc, Triton kernels
+# in cmx_torch/ops), as the profiler names them.
+PORT_KERNEL_NAMES = ("cmx::", "crop_weights_kernel", "sgemm_batched_kernel",
+                     "spark_loss_kernel", "bn_relu_mask_kernel")
+
+
+def core_ranges(core) -> dict:
+    """The profiler's names of an autograd Function's forward and backward
+    ranges -> "forward" / "backward"."""
+    return {core.__name__: "forward",
+            f"autograd::engine::evaluate_function: {core.__name__}Backward":
+                "backward"}
+
+
+def kernels_under(event):
+    """(name, device us) of every kernel launched inside a profiler CPU
+    event and its children."""
+    for k in event.kernels:
+        yield k.name, k.duration
+    for child in event.cpu_children:
+        yield from kernels_under(child)
+
+
+def profile_steps(run_step, n: int, step_ms: float, label: str,
+                  core=None) -> None:
     """Device time by kernel over n steps (torch.profiler / CUPTI), and the
-    device's busy share of the step time measured without the profiler."""
+    device's busy share of the step time measured without the profiler.
+    With `core`, the fused DoubleConv's autograd Function, also the device
+    time inside its forward and backward ranges (fails if either is not in
+    the profile)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -364,29 +481,57 @@ def profile_steps(run_step, n: int, step_ms: float, label: str) -> None:
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    port_ms = sum(e.self_device_time_total for e in kernels
+                  if any(k in e.key for k in PORT_KERNEL_NAMES)) / 1e3 / n
     print(f"{label} profile of {n} steps: device busy {busy_ms:.3f} ms/step "
           f"of step_ms={step_ms:.3f} ({100 * busy_ms / step_ms:.1f}%); "
-          f"{sum(e.count for e in kernels) // n} device operations/step; "
-          f"top by device time:", flush=True)
+          f"the port's kernels {port_ms:.3f} ms/step, everything else "
+          f"{busy_ms - port_ms:.3f}; {sum(e.count for e in kernels) // n} "
+          f"device operations/step; top by device time:", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3 / n
         print(f"  {ms:9.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // n:<4d} {e.key[:100]}", flush=True)
+    if core is None:
+        return
+    ranges = core_ranges(core)
+    inside = {"forward": 0.0, "backward": 0.0, "port": 0.0}
+    seen = set()
+    for e in prof.events():
+        if e.name in ranges:
+            seen.add(e.name)
+            ks = list(kernels_under(e))
+            inside[ranges[e.name]] += sum(us for _, us in ks) / 1e3 / n
+            inside["port"] += sum(us for k, us in ks if any(
+                p in k for p in PORT_KERNEL_NAMES)) / 1e3 / n
+    if seen != set(ranges):
+        fail(f"the {label} profile has no range named "
+             f"{sorted(set(ranges) - seen)}")
+    in_core = inside["forward"] + inside["backward"]
+    print(f"  inside the fused DoubleConv cores ({core.__name__}): forward "
+          f"{inside['forward']:.3f}, backward {inside['backward']:.3f} "
+          f"device ms/step, of which the port's kernels "
+          f"{inside['port']:.3f} and other kernels "
+          f"{in_core - inside['port']:.3f}; outside the cores "
+          f"{busy_ms - in_core:.3f}", flush=True)
 
 
-def step_phase(state, step, imgs, per_step: dict, steps: int):
-    """Phase 2: the main path, its launch counts, time and profile."""
+def step_phase(state, step, imgs, per_step: dict, steps: int, label: str,
+               core):
+    """Phases 2 and B: the main path, its launch counts, time and profile
+    (`core`: the fused DoubleConv's autograd Function)."""
     wrappers = {name: k[0] for name, k in kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
-    step_ms, _ = run_steps(state, step, imgs, steps, "fused")
+    step_ms, _ = run_steps(state, step, imgs, steps, label)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     expect = {name: per_step.get(name, 0) * steps for name in wrappers}
     print(f"launches in {steps} steps: {launches} (expected from the recorded "
           f"step: {expect})", flush=True)
     if launches != expect or 0 in [launches[name] for name in per_step]:
-        fail("the step did not run every kernel the expected number of times")
-    profile_steps(lambda: step(state, imgs), 2, step_ms, "fused")
+        fail(f"the {label} step did not run every kernel the expected number "
+             f"of times")
+    profile_steps(lambda: step(state, imgs), 2, step_ms, label, core)
     return launches, step_ms
 
 
@@ -407,9 +552,10 @@ def unfused_phase(batch: int, steps: int) -> float:
     return step_ms
 
 
-def reference_phase():
+def reference_phase(label: str):
     """Phase 3: the fused step's forward/BN stats against the unfused
-    plain-PyTorch model from the same weights and draws (batch 2, 256^2)."""
+    plain-PyTorch model from the same weights and draws (batch 2, 256^2);
+    the fused model takes the impl FUSED_IMPL names (`label`)."""
     import torch
 
     from cmx_torch.cli.pretrain import build_task
@@ -441,16 +587,76 @@ def reference_phase():
     bs_f = dict(fused_model.named_buffers())
     d_bs = max(float((b - bs_f[n]).abs().max())
                for n, b in plain_model.named_buffers())
-    print(f"reference: loss fused={losses['fused']:.6f} "
+    print(f"reference ({label}): loss fused={losses['fused']:.6f} "
           f"plain={losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); "
           f"BN running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
     if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2 and d_bs <= 5e-2):
-        fail("the fused step disagrees with the plain-PyTorch model")
+        fail(f"the fused ({label}) step disagrees with the plain-PyTorch "
+             f"model")
 
 
 SPARK_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega",
                  "spark_loss_pallas")
+NHWC_PER_STEP = {"conv_stem_stats": 1, "conv3x3_mask_stats": 3,
+                 "bwd_mega": 3, "spark_loss_pallas": 1}
+NHWC_KERNELS = ("conv_stem_stats", "conv3x3_mask_stats", "bwd_mega")
 MOCO_KERNELS = ("crop_resize_pallas",)
+
+
+def bn_relu_mask_phase(calls, iters: int):
+    """Phase K5: bn_relu_mask_pallas, which no path calls, driven once on the
+    operands of the recorded pre-norm K7 call at down1 -- the activation K7
+    builds in its prologue -- then held to its plain version and timed.
+    Returns (kernel_phase's sums, the launches of the drive)."""
+    from cmx_torch.ops import pallas_ops as po
+
+    src, m, _, _, inv, shift = next(
+        args for name, args in calls
+        if name == "conv3x3_mask_stats" and args[4] is not None)
+    args = (src, inv, shift, m[..., None])
+    po.bn_relu_mask_pallas.launches = 0
+    po.bn_relu_mask_pallas(*args)
+    launches = po.bn_relu_mask_pallas.launches
+    print(f"K5 phase: bn_relu_mask_pallas on down1's pre-norm K7 operands "
+          f"{tuple(src.shape)} {src.dtype}: {launches} launch (no caller on "
+          f"any path)", flush=True)
+    if launches != 1:
+        fail("bn_relu_mask_pallas did not launch its kernel")
+    return kernel_phase([("bn_relu_mask_pallas", args)], iters), launches
+
+
+def nhwc_phase(flat_loss: float, steps: int, iters: int):
+    """Phases A, K5 and B: the SparK step with FUSED_IMPL="nhwc"."""
+    import torch
+
+    from cmx_torch.ops import fused_conv as fc
+
+    state, step, imgs = make_step(make_cfg(BATCH))
+    calls, loss = record_step(state, step, imgs)
+    per_step = collections.Counter(name for name, _ in calls)
+    d_loss = abs(loss - flat_loss) / abs(flat_loss)
+    print(f"nhwc recorded step: kernel calls per step {dict(per_step)}; "
+          f"loss {loss:.6f} against the flat step's {flat_loss:.6f} (same "
+          f"weights, images and draws): rel diff {d_loss:.3e} (tol 1e-3)",
+          flush=True)
+    if dict(per_step) != NHWC_PER_STEP:
+        fail(f"the NHWC step called {dict(per_step)}, expected "
+             f"{NHWC_PER_STEP}")
+    if not d_loss <= 1e-3:
+        fail("the NHWC step's loss disagrees with the flat step's")
+    shapes = [(name, nhwc_shape(name, args)) for name, args in calls
+              if name in NHWC_KERNELS]
+    kern = kernel_phase(calls, iters)
+    k5, k5_launches = bn_relu_mask_phase(calls, iters)
+    kern.update(k5)
+    del calls
+    torch.cuda.empty_cache()
+    launches, step_ms = step_phase(state, step, imgs, per_step, steps, "nhwc",
+                                   fc.FusedDoubleConv)
+    launches["bn_relu_mask_pallas"] = k5_launches
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    return kern, launches, step_ms, shapes
 
 
 def make_moco_cfg(batch: int, crop_impl: str):
@@ -526,7 +732,7 @@ def moco_phase(batch: int, steps: int, iters: int):
     print(f"moco model params: "
           f"{sum(p.numel() for p in state.model.parameters())}; queue "
           f"{tuple(state.extra['queue'].shape)}", flush=True)
-    calls = record_step(state, step, imgs)
+    calls, _ = record_step(state, step, imgs)
     per_step = collections.Counter(name for name, _ in calls)
     print(f"moco recorded step: kernel calls per step {dict(per_step)}",
           flush=True)
@@ -589,6 +795,8 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from cmx_torch import resolve_device
     from cmx_torch.ops import _build
+    from cmx_torch.ops import fused_conv as fc
+    from cmx_torch.ops import fused_conv_flat as ff
     from cmx_torch.utils import roofline as rl
 
     resolve_device("cuda")
@@ -613,9 +821,10 @@ def main() -> int:
     print(f"model params: {sum(p.numel() for p in state.model.parameters())}; "
           f"TF32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-    calls = record_step(state, step, imgs)
+    calls, flat_loss = record_step(state, step, imgs)
     per_step = collections.Counter(name for name, _ in calls)
-    print(f"recorded step: kernel calls per step {dict(per_step)}", flush=True)
+    print(f"recorded step: kernel calls per step {dict(per_step)}; loss "
+          f"{flat_loss:.6f}", flush=True)
     if set(per_step) != set(SPARK_KERNELS):
         fail(f"the SparK step called {sorted(per_step)}, expected "
              f"{sorted(SPARK_KERNELS)}")
@@ -626,14 +835,34 @@ def main() -> int:
     del calls
     torch.cuda.empty_cache()
     spark_launches, step_ms = step_phase(state, step, imgs, per_step,
-                                         SPARK_STEPS)
+                                         SPARK_STEPS, "fused",
+                                         ff.FlatDoubleConv)
     del state, step, imgs
     torch.cuda.empty_cache()
     unfused_ms = unfused_phase(BATCH, SPARK_STEPS)
     print(f"fused step_ms={step_ms:.3f} unfused step_ms={unfused_ms:.3f} "
           f"(fused/unfused {step_ms / unfused_ms:.3f})", flush=True)
-    reference_phase()
+    reference_phase("flat")
     print(f"SparK phases took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    fc.FUSED_IMPL = "nhwc"
+    try:
+        nhwc_kern, nhwc_launches, nhwc_ms, nhwc_calls = nhwc_phase(
+            flat_loss, SPARK_STEPS, ITERS)
+        reference_phase("nhwc")
+    finally:
+        fc.FUSED_IMPL = "flat"
+    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas"):
+        kern[n] = nhwc_kern[n]
+    print(f"SparK steps (batch {BATCH}, bf16; same call): "
+          + ", ".join(f"{label} step_ms={ms:.3f} img_per_s="
+                      f"{BATCH / ms * 1e3:.2f}" for label, ms in (
+                          ("flat fused", step_ms), ("nhwc fused", nhwc_ms),
+                          ("unfused", unfused_ms)))
+          + f" (nhwc/flat {nhwc_ms / step_ms:.3f}, nhwc/unfused "
+          f"{nhwc_ms / unfused_ms:.3f})", flush=True)
+    print(f"NHWC phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     moco_kern, moco_launches = moco_phase(MOCO_BATCH, MOCO_STEPS, ITERS)
@@ -642,14 +871,16 @@ def main() -> int:
 
     crops = kern["crop_resize_pallas"]["crops"]
     print(f"bounds of every TPU kernel's work in one step (SparK batch {BATCH}; "
-          f"stages {stages}; K4: the recorded MoCo crops {crops}):",
-          flush=True)
-    for r in rl.table(BATCH, stages, crops):
+          f"flat stages {stages}; K4: the recorded MoCo crops {crops}; K6-K8: "
+          f"the NHWC step's calls {nhwc_calls}):", flush=True)
+    for r in rl.table(BATCH, stages, crops, nhwc_calls):
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     launches = {**{n: spark_launches[n] for n in SPARK_KERNELS},
-                **{n: moco_launches[n] for n in MOCO_KERNELS}}
+                **{n: moco_launches[n] for n in MOCO_KERNELS},
+                **{n: nhwc_launches[n]
+                   for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
     rows = []
     for name, (_, _, route, source, replaces) in kernels().items():
         k = kern[name]
@@ -659,10 +890,15 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": k["library_ms"]})
+        if name == "bn_relu_mask_pallas":
+            rows[-1]["path"] = ("none: no caller in cmx or the port; launches "
+                                "are the K5 phase's")
     print(f"per-step kernel times (ms, sum over one step's launches: SparK "
-          f"batch {BATCH} for K1-K3, MoCo batch {MOCO_BATCH} for K4; "
-          f"launches: {SPARK_STEPS} SparK / {MOCO_STEPS} MoCo steps); SparK "
-          f"step_ms={step_ms:.3f}", flush=True)
+          f"batch {BATCH} for K1-K3 (FUSED_IMPL flat) and K6-K8 (nhwc), MoCo "
+          f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "
+          f"launches: {SPARK_STEPS} SparK steps of each impl / {MOCO_STEPS} "
+          f"MoCo steps / the K5 phase); SparK step_ms flat={step_ms:.3f} "
+          f"nhwc={nhwc_ms:.3f}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

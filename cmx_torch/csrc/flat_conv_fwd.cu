@@ -7,9 +7,9 @@
 //
 // Bound on the card: tensor-core flops at the main path's widths (see
 // conv3x3_core.cuh); the stats add no pass over memory.
-// Design: the conv core of conv3x3_core.cuh with the prologue applied while
-// staging the input tile (the activated previous-stage tensor never goes to
-// device memory, as on the TPU). The TPU kernel accumulated the stats in one
+// Design: the channel-major conv core of conv3x3_core.cuh with the prologue
+// applied while staging the input tile (the activated previous-stage tensor
+// never goes to device memory, as on the TPU). The TPU kernel accumulated the stats in one
 // VMEM-resident block across its sequential grid; blocks on the card run in
 // parallel, so each block writes its per-channel partial sums (one warp
 // reduces its 8 channels by shuffles) and the wrapper sums the partials.
@@ -34,10 +34,12 @@ extern "C" int cmx_flat_conv_fwd(const void* src, const void* mask,
   auto part_ = static_cast<float*>(part);
   cudaError_t err;
   if (prenorm)
-    err = launch_conv3x3<true, true>(src_, mask_, inv_, shift_, wk_, bias_, y_,
-                                     part_, B, Cin, Cout, H, W, s);
+    err = launch_conv3x3<false, true, true>(src_, mask_, inv_, shift_, wk_,
+                                            bias_, y_, part_, B, Cin, Cout, H,
+                                            W, s);
   else
-    err = launch_conv3x3<false, true>(src_, mask_, inv_, shift_, wk_, bias_,
-                                      y_, part_, B, Cin, Cout, H, W, s);
+    err = launch_conv3x3<false, false, true>(src_, mask_, inv_, shift_, wk_,
+                                             bias_, y_, part_, B, Cin, Cout, H,
+                                             W, s);
   return static_cast<int>(err);
 }

@@ -141,9 +141,12 @@ class DoubleConv(nn.Module):
 
     In training mode with `fused`, bf16 and a stage shape inside the gates of
     cmx (H >= FUSED_MIN_HW, H % STRIP == 0, W % 8 == 0, Cin <= FUSED_MAX_CIN;
-    cmx/models/blocks.py:233-241) the stage runs through the flat fused
-    kernels (FlatDoubleConv), with naive moments and zero conv-bias grads as
-    in cmx; the parameter tree is the same either way."""
+    cmx/models/blocks.py:233-241) the stage runs through the fused kernels,
+    with naive moments as in cmx, in the impl that
+    cmx_torch.ops.fused_conv.FUSED_IMPL names at forward time: "flat" through
+    FlatDoubleConv (channel-major), "nhwc" through FusedDoubleConv
+    (channels-last; its output is returned as a channels_last NCHW view).
+    The parameter tree is the same either way."""
 
     def __init__(self, cin: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False):
@@ -165,8 +168,7 @@ class DoubleConv(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B,Cin,H,W); mask (B,1,H,W) or None."""
         if self.use_fused(x):
-            from cmx_torch.ops import fused_conv_flat as ff
-
+            impl = fc.FUSED_IMPL
             B, cin, H, W = x.shape
             if mask is None:
                 m = torch.ones((B, H, W), dtype=torch.bfloat16, device=x.device)
@@ -176,12 +178,23 @@ class DoubleConv(nn.Module):
             for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
                 params += [conv.kernel.permute(2, 3, 1, 0), conv.bias,
                            bn.scale, bn.bias]
-            outf, (mean0, var0, mean1, var1) = ff.flat_double_conv(
-                x.to(self.dtype).reshape(B, cin, H * W),
-                m.reshape(B, 1, H * W), *params, H, W)
+            if impl == "flat":
+                from cmx_torch.ops import fused_conv_flat as ff
+
+                outf, (mean0, var0, mean1, var1) = ff.flat_double_conv(
+                    x.to(self.dtype).reshape(B, cin, H * W),
+                    m.reshape(B, 1, H * W), *params, H, W)
+                out = outf.reshape(B, -1, H, W)
+            elif impl == "nhwc":
+                outn, (mean0, var0, mean1, var1) = fc.fused_double_conv(
+                    x.to(self.dtype).permute(0, 2, 3, 1), m, *params)
+                out = outn.permute(0, 3, 1, 2)
+            else:
+                raise ValueError(f"unknown fused impl {impl!r}: expected "
+                                 f"'flat' or 'nhwc'")
             self.bn0.update_running(mean0, var0)
             self.bn1.update_running(mean1, var1)
-            return outf.reshape(B, -1, H, W)
+            return out
 
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
             x = conv(x)

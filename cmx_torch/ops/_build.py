@@ -40,6 +40,9 @@ _SIGNATURES = {
     "flat_conv_fwd": {"cmx_flat_conv_fwd": "pppppppp" + "iiiiii" + "p"},
     "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p"},
     "crop_resize": {"cmx_crop_resize": "pppppp" + "iiiii" + "p"},
+    "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
+                      "cmx_nhwc_stem": "pppppp" + "iii" + "p"},
+    "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

@@ -1,30 +1,69 @@
-"""Shared pieces of the fused masked DoubleConv (port of cmx/ops/fused_conv.py).
+"""Fused masked DoubleConv, NHWC strip family (port of cmx/ops/fused_conv.py).
 
-The NHWC strip kernels of cmx (conv_stem_stats, conv3x3_mask_stats,
-bwd_mega; reached only with FUSED_IMPL="nhwc") are not ported yet. What the
-flat kernels and the model's fused gate need lives here: the constants, the
-BN fold and the naive masked moments of the fused path, and a plain
-reference of the masked DoubleConv for tests.
+Layout as in cmx: NHWC activations (B,H,W,C), (B,H,W) masks, HWIO kernels
+(3,3,Cin,C); bf16 activations, fp32 statistics and parameters. Three
+kernels, each a hand-written CUDA kernel for Hopper beside a plain PyTorch
+version of the same function:
+
+  * conv_stem_stats (K6, csrc/nhwc_conv_fwd.cu): the Cin=1 stem as a 9-tap
+    product of make_patches9's patches with w (9,C), + bias, re-mask, bf16
+    store, per-channel sum / sum of squares of the fp32 result;
+  * conv3x3_mask_stats (K7, csrc/nhwc_conv_fwd.cu): optional pre-norm
+    prologue relu(src*inv+shift)*m, 3x3 SAME conv + bias, re-mask, bf16
+    store, stats;
+  * bwd_mega (K8, csrc/nhwc_conv_bwd.cu): the masked-BN input gradient dy,
+    dX = conv of dy with the flipped, channel-transposed weights, and dW.
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises. `<wrapper>.launches` counts the
+kernel's launches. cmx's halo pre-slicing (`_halo_rows`, `_with_halo`) is a
+Mosaic workaround, not part of the function: the CUDA kernels read their
+neighbour pixels from the tensor and zero the image border.
+
+FusedDoubleConv is cmx's fused_double_conv: the forward of its _fwd_impl and
+the backward of its _fused_bwd as cmx runs it (FUSED_BWD on). A stage with
+Cin >= 8 runs K8 and its conv bias gets an exact-zero gradient; the Cin < 8
+stem runs the hand-derived masked-BN backward in plain torch and torch's
+conv backward (cmx leaves both to XLA) and its conv bias gets sum(dy).
+
+Also here, shared with the flat impl (fused_conv_flat.py): the gates and
+module switches, the BN fold and the naive masked moments of the fused path,
+the CUDA operand checks, and a plain reference of the masked DoubleConv.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
-# Strip height of the TPU kernels; blocks.DoubleConv's gate still requires
-# H % STRIP == 0 so that the port fuses exactly where cmx does.
+from cmx_torch.ops import _build
+
+# Strip height of the TPU kernels; blocks.DoubleConv's gate requires
+# H % STRIP == 0 so that the port fuses exactly where cmx does, and the NHWC
+# kernels take what cmx's take (H % STRIP == 0, W % 8 == 0).
 STRIP = 32
 _EPS = 1e-5
 
-# Gates of DoubleConv's fused path, as in cmx (tuned there for the TPU;
-# module-level so tests and A/B tools can patch them).
+# The impl DoubleConv's fused path takes, read at forward time as in cmx
+# ("flat" = fused_conv_flat.py's channel-major kernels, "nhwc" = this file).
+FUSED_IMPL = "flat"
+
+# Gates of DoubleConv's fused path, as in cmx (tuned there for the TPU).
 FUSED_MIN_HW = 128
 FUSED_MAX_CIN = 128
 
 # Kernel compute/storage dtype: bf16 on the main path; tests set float32 to
 # compare the hand-derived backward with autograd without rounding noise.
 COMPUTE_DTYPE = torch.bfloat16
+
+# Tile geometry of the CUDA conv kernels (csrc/conv3x3_core.cuh,
+# conv3x3_bwd.cuh); the wrappers size the kernels' partial sums from it.
+_CONV_TH, _CONV_TW = 4, 32
+_DW_TR, _DW_TC, _DW_CI, _DW_CO = 2, 32, 16, 64
+_STEM_NT, _STEM_MAX_C = 256, 512
 
 
 def _cdt() -> torch.dtype:
@@ -41,6 +80,376 @@ def _stats(ssum, sq, nact):
     mean = ssum / nact
     var = torch.clamp(sq / nact - mean * mean, min=0.0)
     return mean, var
+
+
+def _bwd_vecs(inv, shift, mean, var, s1, s2, nact):
+    rr = torch.rsqrt(var + _EPS)
+    return inv, shift, mean, rr, s1 / nact, s2 / nact
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch helpers, shared with fused_conv_flat.py
+# ---------------------------------------------------------------------------
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
+                         other: dict, h_mult: int, w_mult: int) -> None:
+    """Raise unless every operand lies on `dev` (a CUDA device), the
+    activations are bf16 and H, W are multiples of what the kernel takes."""
+    for name, t in {**bf16, **other}.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    for name, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16 {name}, got {t.dtype}")
+    if H % h_mult or W % w_mult:
+        raise ValueError(f"the CUDA kernel needs H % {h_mult} == 0 and "
+                         f"W % {w_mult} == 0, got {H}x{W}")
+
+
+def _dw_chunks(tiles: int, Cin: int, C: int, dev: torch.device):
+    """(nchunks, tiles per chunk) of the dW kernel's bounded grid: about 4
+    blocks an SM over the (Cin, C) slices."""
+    slices = math.ceil(Cin / _DW_CI) * math.ceil(C / _DW_CO)
+    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    nchunks = min(tiles, max(1, math.ceil(target / slices)))
+    per_chunk = math.ceil(tiles / nchunks)
+    return math.ceil(tiles / per_chunk), per_chunk
+
+
+# ---------------------------------------------------------------------------
+# K6: the Cin=1 stem
+# ---------------------------------------------------------------------------
+
+
+def make_patches9(x: torch.Tensor) -> torch.Tensor:
+    """(B,H,W) -> (B,H,W,9) zero-padded 3x3 neighbourhoods, tap dy*3+dx."""
+    H, W = x.shape[1], x.shape[2]
+    xp = F.pad(x, (1, 1, 1, 1))
+    return torch.stack([xp[:, dy:dy + H, dx:dx + W]
+                        for dy in range(3) for dx in range(3)], dim=-1)
+
+
+def conv_stem_stats_plain(patches, m, w, b):
+    """Plain version of K6 (also the CPU path). Same contract as the kernel."""
+    acc = patches.float() @ w.to(patches.dtype).float()  # (B,H,W,C) fp32
+    acc = (acc + b.float()) * m.float()[..., None]
+    return acc.to(_cdt()), acc.sum((0, 1, 2)), (acc * acc).sum((0, 1, 2))
+
+
+def _stem_cuda(patches, m, w, b):
+    B, H, W, K = patches.shape
+    C = w.shape[1]
+    if K != 9 or tuple(w.shape) != (9, C) or tuple(m.shape) != (B, H, W):
+        raise ValueError(f"bad shapes patches {tuple(patches.shape)} w "
+                         f"{tuple(w.shape)} m {tuple(m.shape)}")
+    if C > _STEM_MAX_C:
+        raise ValueError(f"the CUDA stem kernel takes C <= {_STEM_MAX_C}, "
+                         f"got {C}")
+    _check_cuda_operands(H, W, patches.device, dict(patches=patches),
+                         dict(m=m, w=w, b=b), STRIP, 8)
+    lib = _build.load("nhwc_conv_fwd")
+    dev = patches.device
+    P = B * H * W
+    patches = patches.contiguous()
+    mask = m.to(torch.bfloat16).contiguous()
+    wk = w.to(torch.bfloat16).contiguous()
+    bias = b.float().contiguous()
+    ppb = _STEM_NT // math.ceil(C / 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nblk = min(math.ceil(P / ppb), 8 * sms)
+    y = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((nblk, 2, C), dtype=torch.float32, device=dev)
+    err = lib.cmx_nhwc_stem(_ptr(patches), _ptr(mask), _ptr(wk), _ptr(bias),
+                            _ptr(y), _ptr(part), P, C, nblk, _stream(y))
+    _build.check(err, "conv_stem_stats")
+    conv_stem_stats.launches += 1
+    s = part.sum(0)
+    return y, s[0], s[1]
+
+
+def conv_stem_stats(patches: torch.Tensor, m: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """patches (B,H,W,9) bf16, m (B,H,W), w (9,C), b (C,).
+
+    Returns (y (B,H,W,C) bf16, sum (C,) fp32, sumsq (C,) fp32)."""
+    _build.record("conv_stem_stats", patches, m, w, b)
+    if patches.device.type == "cpu":
+        return conv_stem_stats_plain(patches, m, w, b)
+    return _stem_cuda(patches, m, w, b)
+
+
+conv_stem_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: [normalize-ReLU-mask ->] conv3x3 + bias + mask + inline stats
+# ---------------------------------------------------------------------------
+
+
+def conv3x3_mask_stats_plain(src, m, w, b, inv=None, shift=None):
+    """Plain version of K7 (also the CPU path). Same contract as the kernel."""
+    cdt = _cdt()
+    x = src.to(cdt).permute(0, 3, 1, 2)  # NCHW view
+    mf = m.float()[:, None]
+    if inv is not None:
+        x = (torch.relu(x.float() * inv[:, None, None] + shift[:, None, None])
+             * mf).to(cdt)
+    wk = w.to(cdt).float().permute(3, 2, 0, 1)  # (C, Cin, 3, 3)
+    acc = F.conv2d(x.float(), wk, padding=1)  # fp32 accumulation
+    acc = (acc + b.float()[:, None, None]) * mf
+    return (acc.to(cdt).permute(0, 2, 3, 1), acc.sum((0, 2, 3)),
+            (acc * acc).sum((0, 2, 3)))
+
+
+def _conv_cuda(src, m, w, b, inv, shift):
+    B, H, W, Cin = src.shape
+    C = w.shape[3]
+    if tuple(w.shape[:3]) != (3, 3, Cin) or tuple(m.shape) != (B, H, W):
+        raise ValueError(f"bad shapes src {tuple(src.shape)} w "
+                         f"{tuple(w.shape)} m {tuple(m.shape)}")
+    _check_cuda_operands(H, W, src.device, dict(src=src),
+                         dict(m=m, w=w, b=b, inv=inv, shift=shift), STRIP, 8)
+    lib = _build.load("nhwc_conv_fwd")
+    dev = src.device
+    src = src.contiguous()
+    mask = m.to(torch.bfloat16).contiguous()
+    wk = w.to(torch.bfloat16).reshape(9, Cin, C).contiguous()
+    bias = b.float().contiguous()
+    prenorm = inv is not None
+    inv_ = inv.float().contiguous() if prenorm else None
+    shift_ = shift.float().contiguous() if prenorm else None
+    y = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
+    nblk = B * math.ceil(H / _CONV_TH) * math.ceil(W / _CONV_TW)
+    part = torch.empty((nblk, 2, C), dtype=torch.float32, device=dev)
+    err = lib.cmx_nhwc_conv_fwd(
+        _ptr(src), _ptr(mask), _ptr(inv_), _ptr(shift_), _ptr(wk), _ptr(bias),
+        _ptr(y), _ptr(part), B, Cin, C, H, W, int(prenorm), _stream(y))
+    _build.check(err, "conv3x3_mask_stats")
+    conv3x3_mask_stats.launches += 1
+    s = part.sum(0)
+    return y, s[0], s[1]
+
+
+def conv3x3_mask_stats(
+    src: torch.Tensor, m: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    inv: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused [normalize-ReLU-mask ->] conv3x3 -> +b -> mask -> inline stats.
+
+    src (B,H,W,Cin) bf16 -- the previous stage's raw conv output when
+    inv/shift are given (pre_norm), else an already-activated tensor; m
+    (B,H,W); w (3,3,Cin,C); b (C,). Returns (y (B,H,W,C) bf16, sum, sumsq)."""
+    _build.record("conv3x3_mask_stats", src, m, w, b, inv, shift)
+    if src.device.type == "cpu":
+        return conv3x3_mask_stats_plain(src, m, w, b, inv, shift)
+    return _conv_cuda(src, m, w, b, inv, shift)
+
+
+conv3x3_mask_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: masked-BN dy + dX + dW
+# ---------------------------------------------------------------------------
+
+
+def bwd_mega_plain(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
+                   prev_fold=None):
+    """Plain version of K8 (also the CPU path). Same contract as the kernel."""
+    C, Cin = y.shape[3], src.shape[3]
+    cdt = _cdt()
+    inv, shift, mean, rr, s1n, s2n = _bwd_vecs(inv, shift, mean, var, s1, s2,
+                                               nact)
+    gf = g.to(cdt).float()
+    yf = y.to(cdt).float()
+    mf = m.float()[..., None]
+    gate = (yf * inv + shift) > 0
+    dz = gf * mf * gate
+    xh = (yf - mean) * rr
+    dy = ((mf * inv) * (dz - s1n - xh * s2n)).to(cdt)
+    h = src.to(cdt)
+    if prev_fold is not None:
+        h = (torch.relu(h.float() * prev_fold[0] + prev_fold[1]) * mf).to(cdt)
+    dyn = dy.float().permute(0, 3, 1, 2)
+    wt = w.to(cdt).float().flip(0, 1).permute(2, 3, 0, 1)  # (Cin, C, 3, 3)
+    dh = F.conv2d(dyn, wt, padding=1).to(cdt).permute(0, 2, 3, 1)
+    dw = torch.nn.grad.conv2d_weight(h.float().permute(0, 3, 1, 2),
+                                     (C, Cin, 3, 3), dyn, padding=1)
+    return dh, dw.permute(2, 3, 1, 0)
+
+
+def _bwd_mega_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
+                   prev_fold):
+    B, H, W, C = y.shape
+    Cin = src.shape[3]
+    if (tuple(g.shape) != (B, H, W, C) or tuple(src.shape) != (B, H, W, Cin)
+            or tuple(w.shape) != (3, 3, Cin, C)):
+        raise ValueError(f"bad shapes g {tuple(g.shape)} y {tuple(y.shape)} "
+                         f"src {tuple(src.shape)} w {tuple(w.shape)}")
+    if _cdt() != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel computes in bf16, not {_cdt()}")
+    g, y, src = (t.to(torch.bfloat16).contiguous() for t in (g, y, src))
+    pinv, pshift = (None, None) if prev_fold is None else prev_fold
+    _check_cuda_operands(
+        H, W, y.device, dict(g=g, y=y, src=src),
+        dict(m=m, inv=inv, shift=shift, mean=mean, var=var, s1=s1, s2=s2,
+             w=w, pinv=pinv, pshift=pshift), STRIP, 8)
+    lib = _build.load("nhwc_conv_bwd")
+    dev = y.device
+    mask = m.to(torch.bfloat16).contiguous()
+    vecs = torch.stack([v.float() for v in _bwd_vecs(
+        inv, shift, mean, var, s1, s2, nact)]).contiguous()  # (6, C)
+    if prev_fold is not None:
+        pinv, pshift = pinv.float().contiguous(), pshift.float().contiguous()
+    wt = w.flip(0, 1).permute(0, 1, 3, 2).reshape(9, C, Cin)
+    wt = wt.to(torch.bfloat16).contiguous()
+    dy = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
+    dh = torch.empty((B, H, W, Cin), dtype=torch.bfloat16, device=dev)
+    tiles = B * (H // _DW_TR) * math.ceil(W / _DW_TC)
+    nchunks, per_chunk = _dw_chunks(tiles, Cin, C, dev)
+    part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
+    err = lib.cmx_nhwc_bwd(
+        _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),
+        _ptr(pshift), _ptr(wt), _ptr(dy), _ptr(dh), _ptr(part),
+        B, Cin, C, H, W, int(prev_fold is not None), nchunks, per_chunk,
+        _stream(y))
+    _build.check(err, "bwd_mega")
+    bwd_mega.launches += 1
+    return dh, part.sum(0).reshape(3, 3, Cin, C)
+
+
+def bwd_mega(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
+             prev_fold=None):
+    """Fused stage backward: (dh (B,H,W,Cin) bf16, dW (3,3,Cin,C) fp32).
+
+    g, y (B,H,W,C): the stage output's cotangent and raw conv output; src
+    (B,H,W,Cin) the stage input (raw previous conv output when prev_fold =
+    (inv0, shift0) is given); s1 multiplies nothing and s2 multiplies x-hat
+    in dy = m*inv*(dz - s1/nact - xhat*s2/nact) (cmx passes (dbeta, dgamma))."""
+    args = (g, y, src, m, inv, shift, mean, var, s1, s2, nact, w, prev_fold)
+    _build.record("bwd_mega", *args)
+    if y.device.type == "cpu":
+        return bwd_mega_plain(*args)
+    return _bwd_mega_cuda(*args)
+
+
+bwd_mega.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The differentiable fused DoubleConv core
+# ---------------------------------------------------------------------------
+
+
+def _conv_vjp(h, w, dy, need_dx):
+    """(dinput (B,H,W,Cin) or None, dkernel (3,3,Cin,C)) of the NHWC 3x3 SAME
+    conv, computed in the compute dtype as cmx's _conv_vjp (torch's conv
+    backward, where cmx leaves it to XLA)."""
+    cdt = _cdt()
+    dinp, dker, _ = torch.ops.aten.convolution_backward(
+        dy.to(cdt).permute(0, 3, 1, 2), h.to(cdt).permute(0, 3, 1, 2),
+        w.to(cdt).permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1], False,
+        [0, 0], 1, [need_dx, True, False])
+    return (None if dinp is None else dinp.permute(0, 2, 3, 1),
+            dker.permute(2, 3, 1, 0))
+
+
+class FusedDoubleConv(torch.autograd.Function):
+    """Masked DoubleConv (training mode) over NHWC operands: x (B,H,W,Cin)
+    pre-masked, m (B,H,W) {0,1}, w_i (3,3,.,C) HWIO. Returns (out (B,H,W,C),
+    mean0, var0, mean1, var1); the statistics are not differentiable (they
+    feed the running averages)."""
+
+    @staticmethod
+    def forward(ctx, x, m, w0, b0, g0, be0, w1, b1, g1, be1):
+        cdt = _cdt()
+        mb = m.to(cdt)
+        nact = torch.clamp(m.float().sum(), min=1.0)
+        if x.shape[-1] == 1:
+            patches = make_patches9(x[..., 0].to(cdt))
+            y0, s0, q0 = conv_stem_stats(patches, mb,
+                                         w0.reshape(9, -1).to(cdt), b0)
+        else:
+            y0, s0, q0 = conv3x3_mask_stats(x.to(cdt), mb, w0.to(cdt), b0)
+        mean0, var0 = _stats(s0, q0, nact)
+        inv0, shift0 = _fold(g0, be0, mean0, var0)
+        y1, s1, q1 = conv3x3_mask_stats(y0, mb, w1.to(cdt), b1, inv0, shift0)
+        mean1, var1 = _stats(s1, q1, nact)
+        inv1, shift1 = _fold(g1, be1, mean1, var1)
+        out = (torch.relu(y1.float() * inv1 + shift1)
+               * m.float()[..., None]).to(cdt)
+        ctx.save_for_backward(x, m, w0, w1, g0, be0, g1, be1, y0, y1,
+                              mean0, var0, mean1, var1, nact)
+        ctx.mark_non_differentiable(mean0, var0, mean1, var1)
+        return out, mean0, var0, mean1, var1
+
+    @staticmethod
+    def backward(ctx, g_out, *_stat_cts):
+        """cmx's _fused_bwd. Per stage, with xhat = (y-mean)*r:
+        dz = g*m*[gate], dgamma = sum(dz*xhat), dbeta = sum(dz),
+        dy = m*gamma*r*(dz - (dbeta + xhat*dgamma)/nact); K8 gates on
+        y*inv+shift > 0 and stage_bwd on gamma*xhat+beta > 0 (equal up to
+        rounding), each as in cmx."""
+        (x, m, w0, w1, g0, be0, g1, be1, y0, y1,
+         mean0, var0, mean1, var1, nact) = ctx.saved_tensors
+        cdt = _cdt()
+        mf = m.float()[..., None]
+        red = (0, 1, 2)
+        inv0, shift0 = _fold(g0, be0, mean0, var0)
+        inv1, shift1 = _fold(g1, be1, mean1, var1)
+
+        def stage_sums(dout, y, mean, var, inv, shift):
+            yf = y.float()
+            r = torch.rsqrt(var + _EPS)
+            gate = (yf * inv + shift) > 0
+            dz = dout.float() * mf * gate
+            return (dz * ((yf - mean) * r)).sum(red), dz.sum(red)
+
+        def stage_bwd(dout, y, mean, var, gamma, beta, dgamma, dbeta):
+            yf = y.float()
+            r = torch.rsqrt(var + _EPS)
+            xhat = (yf - mean) * r
+            gate = (gamma * xhat + beta) > 0
+            dz = dout.float() * mf * gate
+            return mf * (gamma * r) * (dz - (dbeta + xhat * dgamma) / nact)
+
+        # stage 1: out -> y1 -> (h0, w1, b1)
+        dg1, dbe1 = stage_sums(g_out, y1, mean1, var1, inv1, shift1)
+        dh0, dw1 = bwd_mega(g_out, y1, y0, m, inv1, shift1, mean1, var1,
+                            dbe1, dg1, nact, w1, prev_fold=(inv0, shift0))
+        db1 = torch.zeros_like(dbe1)  # BN absorbs the conv bias
+
+        # stage 0: x -> y0 -> (x, w0, b0); the Cin < 8 stem goes to torch
+        dg0, dbe0 = stage_sums(dh0, y0, mean0, var0, inv0, shift0)
+        if x.shape[-1] >= 8:
+            dx, dw0 = bwd_mega(dh0, y0, x.to(cdt), m, inv0, shift0, mean0,
+                               var0, dbe0, dg0, nact, w0)
+            db0 = torch.zeros_like(dbe0)
+        else:
+            dy0 = stage_bwd(dh0, y0, mean0, var0, g0, be0, dg0, dbe0)
+            db0 = dy0.sum(red)
+            dx, dw0 = _conv_vjp(x, w0, dy0.to(cdt),
+                                need_dx=ctx.needs_input_grad[0])
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        return (dx, None, dw0.float(), db0, dg0, dbe0, dw1.float(), db1, dg1,
+                dbe1)
+
+
+def fused_double_conv(x, m, w0, b0, g0, be0, w1, b1, g1, be1):
+    """(out (B,H,W,C), (mean0, var0, mean1, var1)) -- cmx's fused_double_conv."""
+    out, *stats = FusedDoubleConv.apply(x, m, w0, b0, g0, be0, w1, b1, g1, be1)
+    return out, tuple(stats)
 
 
 def double_conv_reference(xf, mflat, w0, b0, g0, be0, w1, b1, g1, be1, H, W):

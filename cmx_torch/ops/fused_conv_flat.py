@@ -21,41 +21,16 @@ exact-zero gradients: batch norm absorbs them).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from cmx_torch.ops import _build
-from cmx_torch.ops.fused_conv import _EPS, _cdt, _fold, _stats
-
-# Tile geometry of the CUDA kernels (csrc/conv3x3_core.cuh, flat_conv_bwd.cu).
-_CONV_TH, _CONV_TW = 4, 32
-_DW_TR, _DW_TC, _DW_CI, _DW_CO = 2, 32, 16, 64
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
-                         other: dict) -> None:
-    """Raise unless every operand lies on `dev` (a CUDA device), the
-    activations are bf16 and the image suits the kernels' tiles."""
-    for name, t in {**bf16, **other}.items():
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    for name, t in bf16.items():
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16 {name}, got {t.dtype}")
-    if H % _CONV_TH or W % _CONV_TW:
-        raise ValueError(f"the CUDA kernel needs H % {_CONV_TH} == 0 and "
-                         f"W % {_CONV_TW} == 0, got {H}x{W}")
+from cmx_torch.ops.fused_conv import (_CONV_TH, _CONV_TW, _DW_TC, _DW_TR,
+                                        _EPS, _bwd_vecs, _cdt,
+                                        _check_cuda_operands, _dw_chunks,
+                                        _fold, _ptr, _stats, _stream)
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +60,8 @@ def _flat_conv_cuda(src, m, w, b, H, W, inv, shift):
     if HW != H * W or w.shape[:3] != (3, 3, Cin):
         raise ValueError(f"bad shapes src {tuple(src.shape)} w {tuple(w.shape)}")
     _check_cuda_operands(H, W, src.device, dict(src=src),
-                         dict(m=m, w=w, b=b, inv=inv, shift=shift))
+                         dict(m=m, w=w, b=b, inv=inv, shift=shift),
+                         _CONV_TH, _CONV_TW)
     lib = _build.load("flat_conv_fwd")
     src = src.contiguous()
     mask = m.reshape(B, HW).to(torch.bfloat16).contiguous()
@@ -128,11 +104,6 @@ flat_conv3x3_mask_stats.launches = 0
 # ---------------------------------------------------------------------------
 # K2: masked-BN dy + dX + dW
 # ---------------------------------------------------------------------------
-
-
-def _bwd_vecs(inv, shift, mean, var, s1, s2, nact):
-    rr = torch.rsqrt(var + _EPS)
-    return inv, shift, mean, rr, s1 / nact, s2 / nact
 
 
 def flat_bwd_mega_plain(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
@@ -178,7 +149,7 @@ def _flat_bwd_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w, H, W,
     _check_cuda_operands(
         H, W, y.device, dict(g=g, y=y, src=src),
         dict(m=m, inv=inv, shift=shift, mean=mean, var=var, s1=s1, s2=s2,
-             w=w, pinv=pinv, pshift=pshift))
+             w=w, pinv=pinv, pshift=pshift), _CONV_TH, _CONV_TW)
     lib = _build.load("flat_conv_bwd")
     dev = y.device
     mask = m.reshape(B, HW).to(torch.bfloat16).contiguous()
@@ -192,11 +163,7 @@ def _flat_bwd_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w, H, W,
     dh = (torch.empty((B, Cin, HW), dtype=torch.bfloat16, device=dev)
           if need_dx else None)
     tiles = B * (H // _DW_TR) * (W // _DW_TC)
-    slices = math.ceil(Cin / _DW_CI) * math.ceil(C / _DW_CO)
-    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    nchunks = min(tiles, max(1, math.ceil(target / slices)))
-    per_chunk = math.ceil(tiles / nchunks)
-    nchunks = math.ceil(tiles / per_chunk)
+    nchunks, per_chunk = _dw_chunks(tiles, Cin, C, dev)
     part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
     err = lib.cmx_flat_bwd(
         _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),

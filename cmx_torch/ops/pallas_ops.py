@@ -1,4 +1,4 @@
-"""SparK loss tail (port of cmx/ops/pallas_ops.py:22-150).
+"""SparK loss tail and the BN-ReLU-mask epilogue (port of cmx/ops/pallas_ops.py).
 
 K3 `spark_loss_pallas`: per 16x16 patch, the mean and one-pass population
 variance E[x^2]-mean^2 (unclamped) + 1e-6, the normalized target, the mean
@@ -7,7 +7,11 @@ The per-patch map is a Triton kernel on the card and its plain PyTorch
 version on the CPU. `SparkLoss` adds cmx's closed-form backward, in plain
 torch as in cmx.
 
-`bn_relu_mask_pallas` (no caller in cmx outside its test) is not ported yet.
+K5 `bn_relu_mask_pallas`: max(x*scale+bias, 0)*mask over NHWC x with the
+folded BN scale and bias, computed in fp32 and stored in x's type. A Triton
+kernel on the card, `bn_relu_mask_plain` on the CPU. cmx calls it from no
+path (only its test); chip_smoke.py drives it on the operands of the SparK
+step's first pre-norm K7 call.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from cmx_torch.ops import _build
 
 _kernel = None
+_bn_kernel = None
 
 
 def _triton_kernel():
@@ -121,6 +126,91 @@ def spark_loss_pallas(rec: torch.Tensor, imgs: torch.Tensor,
 
 
 spark_loss_pallas.launches = 0
+
+
+def _bn_triton_kernel():
+    """The K5 Triton kernel, defined at first launch.
+
+    Replaces cmx/ops/pallas_ops.py::bn_relu_mask_pallas
+    (_bn_act_mask_kernel), which took one image a grid step. Bound on the
+    card: bytes (reads x and the mask once and writes the output once;
+    three flops an element). One program takes a (pixels x channels) block
+    of the (B*H*W, C) view: channels contiguous, so the loads and stores of a
+    row are one coalesced run; scale and bias are loaded once a program and
+    broadcast along the pixels, the mask once a pixel and broadcast along
+    the channels."""
+    global _bn_kernel
+    if _bn_kernel is None:
+        os.environ.setdefault("TRITON_CACHE_DIR",
+                              str(_build.BUILD_DIR / "triton"))
+        import triton
+        import triton.language as tl
+
+        @triton.jit
+        def bn_relu_mask_kernel(x_ptr, scale_ptr, bias_ptr, mask_ptr, out_ptr,
+                                P, C, BLOCK_P: tl.constexpr,
+                                BLOCK_C: tl.constexpr):
+            rows = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
+            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+            ok_r = rows < P
+            ok_c = cols < C
+            ok = ok_r[:, None] & ok_c[None, :]
+            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=ok, other=0.0).to(tl.float32)
+            s = tl.load(scale_ptr + cols, mask=ok_c, other=0.0)
+            b = tl.load(bias_ptr + cols, mask=ok_c, other=0.0)
+            m = tl.load(mask_ptr + rows, mask=ok_r, other=0.0).to(tl.float32)
+            y = tl.maximum(x * s[None, :] + b[None, :], 0.0) * m[:, None]
+            tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=ok)
+
+        _bn_kernel = (triton, bn_relu_mask_kernel)
+    return _bn_kernel
+
+
+def bn_relu_mask_plain(x, scale, bias, mask):
+    """Plain version of K5 (also its CPU path)."""
+    y = torch.relu(x.float() * scale.float() + bias.float())
+    return (y * mask.float()).to(x.dtype)
+
+
+def _bn_relu_mask_triton(x, scale, bias, mask):
+    b, h, w, c = x.shape
+    if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,) \
+            or tuple(mask.shape) != (b, h, w, 1):
+        raise ValueError(f"expected scale, bias ({c},) and mask "
+                         f"{(b, h, w, 1)}, got {tuple(scale.shape)}, "
+                         f"{tuple(bias.shape)}, {tuple(mask.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the Triton kernel takes fp32 or bf16 x, got {x.dtype}")
+    for name, t in (("scale", scale), ("bias", bias), ("mask", mask)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+    triton, kernel = _bn_triton_kernel()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    P = b * h * w
+    block_c = min(triton.next_power_of_2(c), 128)
+    block_p = max(1, 4096 // block_c)
+    grid = (triton.cdiv(P, block_p), triton.cdiv(c, block_c))
+    kernel[grid](x, scale.float().contiguous(), bias.float().contiguous(),
+                 mask.contiguous(), out, P, c, BLOCK_P=block_p,
+                 BLOCK_C=block_c, num_warps=4)
+    bn_relu_mask_pallas.launches += 1
+    return out
+
+
+def bn_relu_mask_pallas(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """x (B,H,W,C) fp32 or bf16, folded BN scale and bias (C,), mask
+    (B,H,W,1) -> max(x*scale+bias, 0)*mask in x's type.
+    `bn_relu_mask_pallas.launches` counts the Triton kernel's launches."""
+    _build.record("bn_relu_mask_pallas", x, scale, bias, mask)
+    if x.device.type == "cpu":
+        return bn_relu_mask_plain(x, scale, bias, mask)
+    return _bn_relu_mask_triton(x, scale, bias, mask)
+
+
+bn_relu_mask_pallas.launches = 0
 
 
 class SparkLoss(torch.autograd.Function):

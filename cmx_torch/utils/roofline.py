@@ -8,7 +8,8 @@ weights). Peaks: NVIDIA H100 SXM data sheet, dense: 3.35 TB/s HBM3,
 (at the full 700 W power limit).
 
 chip_smoke.py computes the bounds from the kernel calls it records in one
-SparK step and one MoCo step, and prints `table()` of those calls.
+SparK step of each fused impl ("flat", "nhwc") and one MoCo step, and prints
+`table()` of those calls.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def crop_work(B, H, W, out, taps_y, taps_x) -> Tuple[float, float]:
 
 
 def bn_relu_mask_work(B, H, W, C) -> Tuple[float, float]:
-    """K5: bf16 in and out, bf16 mask; three flops an element."""
+    """K5: bf16 in and out, bf16 mask, fp32 scale and bias; three fp32 flops
+    an element."""
     return 2.0 * B * H * W * (2 * C + 1) + 8 * C, 3.0 * B * H * W * C
 
 
@@ -78,19 +80,23 @@ def stem_work(B, H, W, C) -> Tuple[float, float]:
 
 
 def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
-          crops: List[Tuple[int, int, int, int, float, float]]) -> List[dict]:
+          crops: List[Tuple[int, int, int, int, float, float]],
+          nhwc: List[Tuple[str, Tuple[int, int, int, int]]]) -> List[dict]:
     """One row per TPU kernel: the bound of all its launches' work in one
-    SparK step at batch B, whose fused DoubleConv stages are `stages`, as
-    (H, W, Cin, Cout, input gradient needed). K4: one MoCo step's crop
-    calls, `crops` as crop_work's arguments (B, H, W, out, taps_y, taps_x);
-    K3 the loss at the first stage's (the input's) size; K5 (no caller):
-    the epilogue of the first stage; K6-K8: the same stages through the
-    NHWC kernels of FUSED_IMPL="nhwc" (K6 the Cin=1 stems, K7 the other
-    convs, K8 the backward of stages with Cin >= 8; cmx leaves Cin < 8 to
-    XLA there)."""
+    step at batch B. K1-K3: the SparK step's flat fused DoubleConv stages,
+    `stages` as (H, W, Cin, Cout, input gradient needed), and the loss at the
+    first stage's (the input's) size; K4: one MoCo step's crop calls, `crops`
+    as crop_work's arguments (B, H, W, out, taps_y, taps_x); K5 (no caller):
+    the epilogue of the first stage; K6-K8: the calls recorded in one SparK
+    step with FUSED_IMPL="nhwc", `nhwc` as (wrapper name, (H, W, Cin, Cout))
+    (K6 conv_stem_stats, K7 conv3x3_mask_stats, K8 bwd_mega)."""
     fwd = [conv3x3_fwd_work(B, h, w, ci, c) for h, w, ci, c, _ in stages]
     bwd = [conv3x3_bwd_work(B, h, w, ci, c, dx) for h, w, ci, c, dx in stages]
     h0, w0, _, c0, _ = stages[0]
+
+    def recorded(name):
+        return [shape for n, shape in nhwc if n == name]
+
     rows = [
         ("K1", "flat_conv3x3_mask_stats", fwd, PEAK_BF16),
         ("K2", "flat_bwd_mega", bwd, PEAK_BF16),
@@ -98,14 +104,15 @@ def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
         ("K4", "crop_resize_pallas", [crop_work(*c) for c in crops],
          PEAK_FP32),
         ("K5", "bn_relu_mask_pallas", [bn_relu_mask_work(B, h0, w0, c0)],
-         PEAK_BF16),
+         PEAK_FP32),
         ("K6", "conv_stem_stats",
-         [stem_work(B, h, w, c) for h, w, ci, c, _ in stages if ci == 1],
+         [stem_work(B, h, w, c) for h, w, _, c in recorded("conv_stem_stats")],
          PEAK_BF16),
         ("K7", "conv3x3_mask_stats",
-         [f for f, st in zip(fwd, stages) if st[2] > 1], PEAK_BF16),
-        ("K8", "bwd_mega", [b for b, st in zip(bwd, stages) if st[2] >= 8],
+         [conv3x3_fwd_work(B, *s) for s in recorded("conv3x3_mask_stats")],
          PEAK_BF16),
+        ("K8", "bwd_mega",
+         [conv3x3_bwd_work(B, *s) for s in recorded("bwd_mega")], PEAK_BF16),
     ]
     out = []
     for key, name, works, peak in rows:

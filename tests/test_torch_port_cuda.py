@@ -8,16 +8,21 @@ inside the fixture). On a machine with the card:
 Shapes here are small and deliberately ragged (Cin not a multiple of the
 staging chunk, Cout not a multiple of the channel tile) to exercise the
 bounds checks; the main path's full-width shapes are covered by
-chip_smoke.py. Tolerances: bf16 outputs rel 1e-2 of the largest entry (a
-one-ulp bf16 rounding flip), fp32 sums rel 1e-3 (summation order); the
-fp32 crop (K4) rel 1e-5 (its weights equal the plain version's op for op;
-the products sum in another order).
+chip_smoke.py. The NHWC kernels (K6-K8) take H % 32 == 0 and W % 8 == 0;
+their shapes include W = 40 (8 times an odd number: a column tile that
+overhangs the image) and Cin 1, 3, 64 and 128. Tolerances: bf16 outputs rel
+1e-2 of the largest entry (a one-ulp bf16 rounding flip), fp32 sums rel
+1e-3 (summation order); the fp32 crop (K4) rel 1e-5 (its weights equal the
+plain version's op for op; the products sum in another order); K5 in fp32
+rel 1e-6 (Triton fuses x*scale+bias into one FMA, the plain version rounds
+twice).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cmx_torch.ops import fused_conv as fc
 from cmx_torch.ops import fused_conv_flat as ff
 from cmx_torch.ops import pallas_crop as pc
 from cmx_torch.ops import pallas_ops as po
@@ -173,3 +178,157 @@ def test_crop_resize_kernel_matches_plain(dev, B, H, W, out, method):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert _rel(got, ref) <= 1e-5
     assert bool((got[0, :3] == 0).all())
+
+
+def _nhwc_inputs(dev, B, H, W, cin, C, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = (torch.rand((B, H, W), generator=g, device=dev) > 0.4)
+    m = m.to(torch.bfloat16)
+    src = (torch.randn((B, H, W, cin), generator=g, device=dev)
+           * m.float()[..., None]).to(torch.bfloat16)
+    w = torch.randn((3, 3, cin, C), generator=g, device=dev) * 0.2
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    inv = torch.rand((cin,), generator=g, device=dev) + 0.5
+    shift = torch.randn((cin,), generator=g, device=dev) * 0.3
+    return g, m, src, w, b, inv, shift
+
+
+NHWC_SHAPES = [(2, 32, 40, 3, 20), (1, 32, 40, 64, 64), (1, 64, 32, 128, 96),
+               (2, 32, 24, 128, 128)]
+
+
+@pytest.mark.parametrize("B,H,W,C", [(2, 32, 40, 64), (1, 64, 24, 20),
+                                     (1, 32, 8, 1)])
+def test_stem_kernel_matches_plain(dev, B, H, W, C):
+    g, m, src, _, b, _, _ = _nhwc_inputs(dev, B, H, W, 1, C)
+    patches = fc.make_patches9(src[..., 0])
+    w = torch.randn((9, C), generator=g, device=dev) * 0.3
+    n0 = fc.conv_stem_stats.launches
+    out = fc.conv_stem_stats(patches, m, w, b)
+    ref = fc.conv_stem_stats_plain(patches, m, w, b)
+    torch.cuda.synchronize()
+    assert fc.conv_stem_stats.launches == n0 + 1
+    assert out[0].dtype == torch.bfloat16 and out[0].shape == (B, H, W, C)
+    assert _rel(out[0], ref[0]) <= 1e-2
+    assert _rel(out[1], ref[1]) <= 1e-3 and _rel(out[2], ref[2]) <= 1e-3
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("B,H,W,cin,C", NHWC_SHAPES)
+def test_nhwc_conv_kernel_matches_plain(dev, B, H, W, cin, C, pre):
+    _, m, src, w, b, inv, shift = _nhwc_inputs(dev, B, H, W, cin, C)
+    inv, shift = (inv, shift) if pre else (None, None)
+    n0 = fc.conv3x3_mask_stats.launches
+    out = fc.conv3x3_mask_stats(src, m, w, b, inv, shift)
+    ref = fc.conv3x3_mask_stats_plain(src, m, w, b, inv, shift)
+    torch.cuda.synchronize()
+    assert fc.conv3x3_mask_stats.launches == n0 + 1
+    assert out[0].shape == (B, H, W, C)
+    assert _rel(out[0], ref[0]) <= 1e-2
+    assert _rel(out[1], ref[1]) <= 1e-3 and _rel(out[2], ref[2]) <= 1e-3
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("B,H,W,cin,C", NHWC_SHAPES)
+def test_nhwc_bwd_kernel_matches_plain(dev, B, H, W, cin, C, pre):
+    g, m, src, w, b, inv, shift = _nhwc_inputs(dev, B, H, W, cin, C, seed=1)
+    gy = torch.randn((B, H, W, C), generator=g, device=dev).to(torch.bfloat16)
+    y = (torch.randn((B, H, W, C), generator=g, device=dev)
+         * m.float()[..., None]).to(torch.bfloat16)
+    vec = [torch.randn((C,), generator=g, device=dev) * 0.3 for _ in range(5)]
+    vec[0] = vec[0].abs() + 0.5
+    var = torch.rand((C,), generator=g, device=dev) + 0.5
+    args = (gy, y, src, m, vec[0], vec[1], vec[2], var, vec[3], vec[4],
+            m.float().sum(), w, (inv, shift) if pre else None)
+    n0 = fc.bwd_mega.launches
+    dh, dw = fc.bwd_mega(*args)
+    dhr, dwr = fc.bwd_mega_plain(*args)
+    torch.cuda.synchronize()
+    assert fc.bwd_mega.launches == n0 + 1
+    assert dh.shape == (B, H, W, cin) and dw.shape == (3, 3, cin, C)
+    assert _rel(dw, dwr) <= 1e-3
+    assert _rel(dh, dhr) <= 1e-2
+
+
+@pytest.mark.parametrize("cin", [1, 16])
+def test_fused_double_conv_on_card_matches_cpu(dev, cin):
+    """Forward, stats and all gradients of FusedDoubleConv on the card
+    (K6 or K7, K7, K8) against the same function on the CPU (the plain
+    versions); Cin=1 runs the stem and its plain-torch backward."""
+    rng = np.random.default_rng(1)
+    B, H, W, C = 2, 32, 40, 16
+    m = torch.from_numpy((rng.random((B, H, W)) > 0.4).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(B, H, W, cin)).astype(np.float32))
+    x = x * m[..., None]
+    params = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(3, 3, cin, C)) * 0.2, rng.normal(size=(C,)) * 0.1,
+        1.0 + rng.normal(size=(C,)) * 0.1, rng.normal(size=(C,)) * 0.1,
+        rng.normal(size=(3, 3, C, C)) * 0.1, rng.normal(size=(C,)) * 0.1,
+        1.0 + rng.normal(size=(C,)) * 0.1, rng.normal(size=(C,)) * 0.1)]
+    probe = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32))
+    n0 = (fc.conv_stem_stats.launches, fc.bwd_mega.launches)
+    res = []
+    for d in ("cpu", dev):
+        leaves = [a.detach().to(d).requires_grad_(True)
+                  for a in [x.to(torch.bfloat16)] + params]
+        out, stats = fc.fused_double_conv(leaves[0], m.to(d), *leaves[1:])
+        (out.float() * probe.to(d)).sum().backward()
+        res.append([out.detach().cpu()] + [s.cpu() for s in stats]
+                   + [a.grad.cpu() for a in leaves])
+    assert fc.conv_stem_stats.launches == n0[0] + (cin == 1)
+    assert fc.bwd_mega.launches == n0[1] + (1 if cin == 1 else 2)
+    for i, (a, b) in enumerate(zip(*res)):
+        if i == 7:  # the stem's conv bias: sum(dy), cancels to rounding noise
+            assert float(a.abs().max()) < 1e-2 and float(b.abs().max()) < 1e-2
+            continue
+        tol = 1e-3 if i in (1, 2, 3, 4) else 3e-2
+        if float(b.abs().max()) == 0.0:
+            assert float(a.abs().max()) == 0.0, i
+        else:
+            assert _rel(a, b) <= tol, (i, _rel(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 40, 64), (1, 8, 24, 20),
+                                   (1, 4, 8, 200)])
+def test_bn_relu_mask_kernel_matches_plain(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W, C = shape
+    x = (torch.randn(shape, generator=g, device=dev) * 2).to(dtype)
+    scale = torch.randn((C,), generator=g, device=dev) * 0.5 + 1.0
+    bias = torch.randn((C,), generator=g, device=dev) * 0.3
+    mask = (torch.rand((B, H, W, 1), generator=g, device=dev) > 0.4).float()
+    n0 = po.bn_relu_mask_pallas.launches
+    out = po.bn_relu_mask_pallas(x, scale, bias, mask)
+    ref = po.bn_relu_mask_plain(x, scale, bias, mask)
+    torch.cuda.synchronize()
+    assert po.bn_relu_mask_pallas.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert _rel(out, ref) <= (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+def test_nhwc_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    _, m, src, w, b, inv, shift = _nhwc_inputs(dev, 1, 32, 40, 8, 16)
+    with pytest.raises(TypeError):
+        fc.conv3x3_mask_stats(src.float(), m, w, b)
+    with pytest.raises(ValueError):  # w on another device
+        fc.conv3x3_mask_stats(src, m, w.cpu(), b)
+    for H, W in ((24, 40), (32, 36)):  # H % 32, W % 8
+        _, m2, src2, w2, b2, _, _ = _nhwc_inputs(dev, 1, H, W, 8, 16)
+        with pytest.raises(ValueError):
+            fc.conv3x3_mask_stats(src2, m2, w2, b2)
+    patches = fc.make_patches9(src[..., 0])
+    with pytest.raises(ValueError):  # wider than the stem kernel takes
+        fc.conv_stem_stats(patches, m, torch.zeros((9, 600), device=dev),
+                           torch.zeros((600,), device=dev))
+    gy = torch.zeros((1, 32, 40, 16), dtype=torch.bfloat16, device=dev)
+    vec = torch.ones((16,), device=dev)
+    with pytest.raises(ValueError):  # w of the wrong shape
+        fc.bwd_mega(gy, gy, src, m, vec, vec, vec, vec, vec, vec,
+                    m.float().sum(), w[:, :, :4])
+    x = torch.zeros((1, 4, 8, 16), dtype=torch.float16, device=dev)
+    mask = torch.ones((1, 4, 8, 1), device=dev)
+    with pytest.raises(TypeError):
+        po.bn_relu_mask_pallas(x, vec, vec, mask)
+    with pytest.raises(ValueError):
+        po.bn_relu_mask_pallas(x.float(), vec, vec, mask.cpu())

@@ -249,8 +249,9 @@ def test_recording_replays_each_kernel_call(fp32):
 
 def test_roofline_table_has_a_row_per_pallas_kernel():
     """cmx_torch.utils.roofline bounds every function of cmx that reaches
-    pl.pallas_call (K1-K8), and K1-K4's bounds follow their shapes (K4:
-    the two view batches of one MoCo step and their non-zero taps)."""
+    pl.pallas_call (K1-K8), and the bounds follow the recorded shapes (K4:
+    the two view batches of one MoCo step and their non-zero taps; K6-K8:
+    the calls of one step with FUSED_IMPL="nhwc")."""
     from pathlib import Path
 
     from cmx_torch.utils import roofline as rl
@@ -261,7 +262,13 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
               (128, 128, 64, 128, True), (128, 128, 128, 128, True)]
     taps = 256 * 224 * 3  # 3 non-zero taps a weight row
     crop = (256, 256, 256, 224, taps, taps)
-    rows = rl.table(32, stages, [crop] * 2)
+    nhwc = [("conv_stem_stats", (256, 256, 1, 64)),
+            ("conv3x3_mask_stats", (256, 256, 64, 64)),
+            ("conv3x3_mask_stats", (128, 128, 64, 128)),
+            ("conv3x3_mask_stats", (128, 128, 128, 128)),
+            ("bwd_mega", (128, 128, 128, 128)), ("bwd_mega", (128, 128, 64, 128)),
+            ("bwd_mega", (256, 256, 64, 64))]
+    rows = rl.table(32, stages, [crop] * 2, nhwc)
     assert calls == len(rows) == 8
     assert [r["kernel"] for r in rows] == [f"K{i}" for i in range(1, 9)]
     assert [r["launches"] for r in rows] == [4, 4, 1, 2, 1, 1, 3, 3]
@@ -270,7 +277,13 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
     assert nb == 4 * 256 * (256 * 256 + 224 * 224 + 4)
     assert fl == 2 * taps * (256 + 224) + 10 * 2 * taps
     assert rows[3]["flops"] == 2 * fl and rows[3]["bound_by"] == "bytes"
-    assert rl.table(32, stages, [crop])[3]["flops"] == fl
+    assert rl.table(32, stages, [crop], nhwc)[3]["flops"] == fl
+    # K6-K8 from the NHWC step's recorded calls, not from the flat stages
+    assert rows[5]["bytes"] == rl.stem_work(32, 256, 256, 64)[0]
+    assert rows[5]["bound_by"] == "bytes"
+    assert rows[7]["flops"] == sum(rl.conv3x3_bwd_work(32, *s)[1]
+                                   for n, s in nhwc if n == "bwd_mega")
+    assert rl.table(32, stages, [crop], nhwc[:2])[6]["launches"] == 1
     # the cheaper order of the two products counts
     assert rl.crop_work(1, 256, 64, 224, 10, 10)[1] == 2 * 10 * (64 + 224) + 200
     b, f = rl.conv3x3_fwd_work(32, 256, 256, 64, 64)
