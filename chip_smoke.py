@@ -5,7 +5,11 @@
 
 Phases (any failure exits non-zero):
   0. build every CUDA kernel of the port from cmx_torch/csrc (nvcc, sm_90a,
-     one process per source, in parallel).
+     one process per source, in parallel); ptxas registers and spills of
+     each kernel, every kernel's SASS digest (_build.sass_digests: equal
+     digests, equal machine code), and the tensor-core instructions
+     (HMMA/HGMMA) that cuobjdump --dump-sass finds in K7's conv and K8's dX
+     and dW kernels (fails if one has none).
 SparK (task.name=spark, model.fused_conv=True, task.pallas_loss=True, full
 widths, 256^2, bf16, batch 32, LAMB lr 2e-4 wd 0.04 clip 5), as the CLI
 builds it:
@@ -19,8 +23,8 @@ builds it:
      kernel's count checked against the recorded calls per step (K4 none),
      finite loss and grad norm, step time; a torch.profiler window of two
      steps (device time by kernel, the device's busy share, the port's
-     kernels against everything else, the device time inside the fused
-     DoubleConv's autograd ranges); then the same
+     kernels against everything else and each of them, the device time
+     inside the fused DoubleConv's autograd ranges); then the same
      step with model.fused_conv=False task.pallas_loss=False (no kernel of
      the port), timed and profiled the same way;
   3. the fused step against the unfused plain-PyTorch model from the same
@@ -76,6 +80,19 @@ SPARK_STEPS = 8   # steps of a SparK run (the first two are warm-up)
 MOCO_BATCH = 256  # the moco preset's batch
 MOCO_STEPS = 8    # steps of a MoCo run (the first two are warm-up)
 ITERS = 5         # timed launches per kernel measurement
+
+# The tensor-core kernels behind K7 and K8 (cmx_torch/csrc/conv3x3_mma.cuh),
+# by wrapper: (library, kernel label as _build.kernel_label gives it).
+TC_KERNELS = {
+    "conv3x3_mask_stats": [("nhwc_conv_fwd", "cmx::conv3x3_mma_kernel<true,true>"),
+                           ("nhwc_conv_fwd", "cmx::conv3x3_mma_kernel<false,true>")],
+    "bwd_mega": [("nhwc_conv_bwd", "cmx::conv3x3_mma_kernel<false,false>"),
+                 ("nhwc_conv_bwd", "cmx::conv3x3_dw_mma_kernel<true>"),
+                 ("nhwc_conv_bwd", "cmx::conv3x3_dw_mma_kernel<false>")],
+}
+# label -> {"registers", "spill_stores", "spill_loads", "HMMA", "HGMMA"} of
+# the TC_KERNELS, filled by phase 0.
+TC_RESOURCES: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -236,6 +253,47 @@ def bwd_check(out, ref, need_dx):
     return ok, err, msg
 
 
+def tensor_core_phase() -> None:
+    """Phase 0's look at the built code: every kernel's SASS digest (equal
+    digests, equal machine code), and for the tensor-core kernels ptxas
+    registers/spills (from the build's log) and SASS tensor-core
+    instruction counts."""
+    from cmx_torch.ops import _build
+
+    tc_libs = {lib for ks in TC_KERNELS.values() for lib, _ in ks}
+    for lib in sorted(_build.build_all()):
+        dump = _build.dump_sass(lib)
+        print(f"  SASS digests {lib}: {json.dumps(_build.sass_digests(dump))}",
+              flush=True)
+        if lib not in tc_libs:
+            continue
+        usage = _build.ptxas_usage(_build.build_log(lib))
+        sass = _build.sass_counts(dump)
+        for name, ks in TC_KERNELS.items():
+            for klib, label in ks:
+                if klib != lib:
+                    continue
+                regs, st, ld = usage.get(label, (None, None, None))
+                ops = sass.get(label, {})
+                TC_RESOURCES[label] = {"registers": regs, "spill_stores": st,
+                                       "spill_loads": ld, **ops}
+                print(f"  {name} kernel {label} in {lib}: registers={regs} "
+                      f"spill stores={st} loads={ld} bytes; SASS {ops}",
+                      flush=True)
+                if not sum(ops.values()):
+                    fail(f"{label} has no tensor-core instruction in its SASS")
+
+
+def tc_summary(name: str) -> str:
+    """The registers, spills and SASS counts of a wrapper's tensor-core
+    kernels, for its call lines."""
+    return "; ".join(
+        f"{label}: {r['registers']} regs, spill {r['spill_stores']}/"
+        f"{r['spill_loads']} B, HMMA {r.get('HMMA')}, HGMMA {r.get('HGMMA')}"
+        for label, r in ((lb, TC_RESOURCES.get(lb, {}))
+                         for _, lb in TC_KERNELS.get(name, [])))
+
+
 def kernel_phase(calls, iters: int):
     """Every recorded call through its wrapper and its plain version on the
     same operands; per kernel name, the sums over the calls (one step's)."""
@@ -367,8 +425,12 @@ def kernel_phase(calls, iters: int):
         bms, _ = rl.bound_ms(nbytes, flops, peak)
         lib = ("library_ms=null" if lib_ms is None else
                f"library_ms={lib_ms:.4f} ({lib_what})")
+        tc = ""
+        if name in TC_KERNELS:
+            tc = (f" tflop_s={flops / t_k / 1e9:.1f} (the call's flops over "
+                  f"kernel_ms) [{tc_summary(name)}]")
         print(f"call {i} {name} B={B} {H}x{W} {msg} kernel_ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f} {lib} bound_ms={bms:.4f}", flush=True)
+              f"plain_ms={t_p:.4f} {lib} bound_ms={bms:.4f}{tc}", flush=True)
         if not ok:
             fail(f"call {i}: {name} disagrees with its plain version")
         r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
@@ -492,6 +554,13 @@ def profile_steps(run_step, n: int, step_ms: float, label: str,
         ms = e.self_device_time_total / 1e3 / n
         print(f"  {ms:9.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
               f"x{e.count // n:<4d} {e.key[:100]}", flush=True)
+    print("  the port's kernels:", flush=True)
+    for e in sorted((e for e in kernels
+                     if any(k in e.key for k in PORT_KERNEL_NAMES)),
+                    key=lambda e: -e.self_device_time_total):
+        ms = e.self_device_time_total / 1e3 / n
+        print(f"  {ms:9.3f} ms/step x{e.count // n:<4d} {e.key[:100]}",
+              flush=True)
     if core is None:
         return
     ranges = core_ranges(core)
@@ -811,10 +880,11 @@ def main() -> int:
     _build.build_all()
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
+    for name in sorted(_build.build_all()):
+        for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    tensor_core_phase()
 
     t0 = time.perf_counter()
     state, step, imgs = make_step(make_cfg(BATCH))
@@ -893,6 +963,14 @@ def main() -> int:
         if name == "bn_relu_mask_pallas":
             rows[-1]["path"] = ("none: no caller in cmx or the port; launches "
                                 "are the K5 phase's")
+        if name in TC_KERNELS:
+            rows[-1]["tflop_s"] = k["flops"] / k["ms"] / 1e9
+            rows[-1]["tensor_core_kernels"] = {
+                label: TC_RESOURCES.get(label) for _, label in TC_KERNELS[name]}
+            print(f"{name}: {k['ms']:.4f} ms a step = "
+                  f"{k['ms'] / k['library_ms']:.2f}x its library call "
+                  f"({k['library_ms']:.4f} ms), {rows[-1]['tflop_s']:.1f} "
+                  f"TFLOP/s, {k['ms'] / bms:.2f}x its bound", flush=True)
     print(f"per-step kernel times (ms, sum over one step's launches: SparK "
           f"batch {BATCH} for K1-K3 (FUSED_IMPL flat) and K6-K8 (nhwc), MoCo "
           f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "

@@ -1,6 +1,9 @@
 // One masked DoubleConv stage backward over bf16 maps, channel-major
 // (B, C, H, W) or channels-last (B, H, W, C): the three launches that K2
-// (flat_conv_bwd.cu) and K8 (nhwc_conv_bwd.cu) run on the caller's stream.
+// (flat_conv_bwd.cu) runs on the caller's stream, on the CUDA cores. It now
+// serves K2 only; K8 (nhwc_conv_bwd.cu) takes from it just the element-wise
+// bn_bwd_dy_kernel, for a Cout that is not a multiple of 8, and runs its
+// products on the tensor cores (conv3x3_mma.cuh).
 //   1. bn_bwd_dy_kernel: the masked-BN input gradient
 //        dz = g*m*[y*inv+shift > 0],  xh = (y-mean)*rr,
 //        dy = bf16((m*inv) * (dz - s1/nact - xh*s2/nact))

@@ -1,7 +1,9 @@
 // Direct 3x3 SAME convolution over bf16 activation maps, channel-major
-// (B, C, H, W) or channels-last (B, H, W, C), shared by the forward kernels
-// (flat_conv_fwd.cu, nhwc_conv_fwd.cu) and the input-gradient half of the
-// backward (conv3x3_bwd.cuh).
+// (B, C, H, W) or channels-last (B, H, W, C), on the CUDA cores: the conv of
+// K1 (flat_conv_fwd.cu) and the input-gradient half of K2's backward
+// (conv3x3_bwd.cuh). It now serves K1/K2 only: the NHWC kernels K7/K8 run
+// their products on the tensor cores (conv3x3_mma.cuh), which takes only
+// the helpers below (prenorm, pack8/unpack8, aligned16) from this file.
 //
 // Block: an output tile of TH rows x TW columns x CO_T channels, 256 threads.
 // Warp w owns channels [8w, 8w+8) of the tile; lane l owns row l/8 and the
@@ -21,9 +23,10 @@
 // What bounds it on the H100: at the main path's widths (Cin, Cout in
 // 64..128) the conv does ~2*9*Cin flops per output byte, so the work is far
 // above the card's ridge point (~295 flop/byte for bf16 tensor cores); the
-// bound is the tensor-core rate. This first version uses the CUDA cores
-// (67 TFLOP/s fp32 peak), so it runs well above that bound; moving the inner
-// product to wgmma/mma.sync with the same staging is the next step.
+// bound is the tensor-core rate. This version uses the CUDA cores (67
+// TFLOP/s fp32 peak), so it runs well above that bound; conv3x3_mma.cuh
+// moved K7/K8 to the tensor cores, and the channel-major K1/K2 wait for
+// their own tensor-core staging (ROADMAP.md).
 #pragma once
 
 #include <cuda_bf16.h>

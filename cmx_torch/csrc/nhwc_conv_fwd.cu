@@ -1,17 +1,19 @@
 // K6 and K7: one masked DoubleConv stage forward on the H100, channels-last.
 //
 // K7 replaces the TPU kernel cmx/ops/fused_conv.py::conv3x3_mask_stats
-// (_conv_kernel), K1 in NHWC: optional pre-norm prologue
-// bf16(relu(src*inv+shift)*m) on the input (halo pixels included), 3x3 SAME
-// conv with bf16 operands and fp32 sums, + bias in fp32, re-mask, bf16
-// store, per-channel sum / sum of squares of the masked fp32 result.
-// Bound on the card: tensor-core flops at the main path's widths (see
-// conv3x3_core.cuh). Design: the channels-last conv core of
-// conv3x3_core.cuh. The TPU kernel received its strip's halo rows as
+// (_conv_kernel, whose _conv_strip is nine shifted MXU dots): optional
+// pre-norm prologue bf16(relu(src*inv+shift)*m) on the input (halo pixels
+// included), 3x3 SAME conv with bf16 operands and fp32 sums, + bias in fp32,
+// re-mask, bf16 store, per-channel sum / sum of squares of the masked fp32
+// result.
+// Bound on the card: tensor-core flops at the main path's widths. Design:
+// the implicit GEMM of conv3x3_mma.cuh on the tensor cores (mma.sync
+// m16n8k16, ldmatrix from a cp.async two-stage ring of halo tiles and
+// packed weights). The TPU kernel received its strip's halo rows as
 // separate pre-sliced inputs (a Mosaic workaround); here a block reads its
-// halo pixels from the tensor itself, 16 bytes (8 channels) a load, and
+// halo pixels from the tensor itself, 16 bytes (8 channels) a copy, and
 // zeroes the image border. Each block writes per-channel partial sums and
-// the wrapper sums them (deterministic, no atomics), as in K1.
+// the wrapper sums them (deterministic, no atomics).
 //
 // K6 replaces cmx/ops/fused_conv.py::conv_stem_stats (_stem_kernel): the
 // Cin=1 stem as a 9-tap product per pixel, y = (patches . w + b) * m with w
@@ -24,7 +26,7 @@
 // pixels' patches (shared by the threads of a pixel) come from L1. Each
 // thread keeps its 8 channels' sums over a grid-stride loop of pixels; the
 // block reduces them in shared memory and writes one partial row.
-#include "conv3x3_core.cuh"
+#include "conv3x3_mma.cuh"
 
 namespace cmx {
 
@@ -107,18 +109,19 @@ __global__ void __launch_bounds__(STEM_NT) stem_kernel(
 }  // namespace cmx
 
 // K7. src (B, H, W, Cin) bf16, mask (B, H, W) bf16, inv / shift (Cin,) fp32
-// when prenorm, wk (9, Cin, Cout) bf16, bias (Cout,) fp32 -> y (B, H, W,
-// Cout) bf16, part (B * ceil(H/4) * ceil(W/32), 2, Cout) fp32.
+// when prenorm, wpack the (ceil(Cout/64), ceil(Cin/16), 9, 16, 64) packing
+// of the (9, Cin, Cout) bf16 weights, bias (Cout,) fp32 -> y (B, H, W,
+// Cout) bf16, part (B * (H/8) * ceil(W/32), 2, Cout) fp32.
 extern "C" int cmx_nhwc_conv_fwd(const void* src, const void* mask,
                                  const void* inv, const void* shift,
-                                 const void* wk, const void* bias, void* y,
+                                 const void* wpack, const void* bias, void* y,
                                  void* part, int B, int Cin, int Cout, int H,
                                  int W, int prenorm, void* stream) {
   using namespace cmx;
   auto s = static_cast<cudaStream_t>(stream);
   auto src_ = static_cast<const __nv_bfloat16*>(src);
   auto mask_ = static_cast<const __nv_bfloat16*>(mask);
-  auto wk_ = static_cast<const __nv_bfloat16*>(wk);
+  auto wp_ = static_cast<const __nv_bfloat16*>(wpack);
   auto y_ = static_cast<__nv_bfloat16*>(y);
   auto inv_ = static_cast<const float*>(inv);
   auto shift_ = static_cast<const float*>(shift);
@@ -126,13 +129,12 @@ extern "C" int cmx_nhwc_conv_fwd(const void* src, const void* mask,
   auto part_ = static_cast<float*>(part);
   cudaError_t err;
   if (prenorm)
-    err = launch_conv3x3<true, true, true>(src_, mask_, inv_, shift_, wk_,
-                                           bias_, y_, part_, B, Cin, Cout, H,
-                                           W, s);
+    err = launch_conv3x3_mma<true, true>(src_, mask_, inv_, shift_, wp_, bias_,
+                                         y_, part_, B, Cin, Cout, H, W, s);
   else
-    err = launch_conv3x3<true, false, true>(src_, mask_, inv_, shift_, wk_,
-                                            bias_, y_, part_, B, Cin, Cout, H,
-                                            W, s);
+    err = launch_conv3x3_mma<false, true>(src_, mask_, inv_, shift_, wp_,
+                                          bias_, y_, part_, B, Cin, Cout, H, W,
+                                          s);
   return static_cast<int>(err);
 }
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,8 +42,11 @@ _SIGNATURES = {
     "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p"},
     "crop_resize": {"cmx_crop_resize": "pppppp" + "iiiii" + "p"},
     "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
-                      "cmx_nhwc_stem": "pppppp" + "iii" + "p"},
-    "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p"},
+                      "cmx_nhwc_stem": "pppppp" + "iii" + "p",
+                      "cmx_nhwc_mma_geometry": "p"},
+    "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p",
+                      "cmx_nhwc_dw_blocks_per_sm": "i",
+                      "cmx_nhwc_mma_geometry": "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
@@ -50,15 +54,19 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas registers/spills)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
+    cand = Path("/usr/local/cuda/bin") / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("cmx_torch: nvcc not found; the CUDA kernels build "
+    raise RuntimeError(f"cmx_torch: {name} not found; the CUDA kernels build "
                        "only on a machine with the CUDA toolkit")
+
+
+def _nvcc() -> str:
+    return _cuda_tool("nvcc")
 
 
 def _lib_path(name: str) -> Path:
@@ -91,10 +99,20 @@ def build_all() -> Dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"{name}:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("cmx_torch: nvcc failed\n" + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas registers and spills) for library `name`, from
+    this process's build or the one that made the library on disk."""
+    if name not in build_logs:
+        log = build_all()[name].with_suffix(".log")
+        build_logs[name] = log.read_text() if log.exists() else ""
+    return build_logs[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -132,3 +150,91 @@ def record(name: str, *args) -> None:
     """Append `(name, args)` to `recorded` when recording is on."""
     if recorded is not None:
         recorded.append((name, _copy(args)))
+
+
+def kernel_label(mangled: str) -> str:
+    """`cmx::name<true,false>` for an Itanium-mangled kernel of namespace
+    cmx with bool template arguments (the port's kernels); else the name
+    with the per-build hash of an anonymous namespace dropped, so that two
+    builds of one source give the same labels."""
+    m = re.match(r"_ZN3cmx(\d+)", mangled)
+    if not m:
+        return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", mangled)
+    end = m.end() + int(m.group(1))
+    label = "cmx::" + mangled[m.end():end]
+    targs = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+    if targs:
+        bools = re.findall(r"Lb([01])E", targs.group(1))
+        label += "<" + ",".join("true" if b == "1" else "false"
+                                for b in bools) + ">"
+    return label
+
+
+def ptxas_usage(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """kernel label -> (registers, spill store bytes, spill load bytes) from
+    nvcc's `-Xptxas -v` output."""
+    usage: Dict[str, List[int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+            usage[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
+def sass_by_kernel(sass: str) -> Dict[str, List[str]]:
+    """kernel label -> its instructions (predicate, mnemonic, operands;
+    no address or encoding) in `cuobjdump --dump-sass` output."""
+    kernels: Dict[str, List[str]] = {}
+    name = None
+    pat = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;")
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            name = kernel_label(m.group(1))
+            kernels[name] = []
+            continue
+        m = pat.match(line)
+        if name is not None and m:
+            kernels[name].append(m.group(1))
+    return kernels
+
+
+def sass_counts(sass: str, ops=("HMMA", "HGMMA")) -> Dict[str, Dict[str, int]]:
+    """kernel label -> {op: count} of the tensor-core instructions in
+    `cuobjdump --dump-sass` output (an op counts where an instruction's
+    mnemonic starts with it and a dot or a space follows)."""
+    mnemonic = re.compile(r"^(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+    counts: Dict[str, Dict[str, int]] = {}
+    for name, instrs in sass_by_kernel(sass).items():
+        counts[name] = {op: 0 for op in ops}
+        for ins in instrs:
+            m = mnemonic.match(ins)
+            if m and m.group(1) in ops:
+                counts[name][m.group(1)] += 1
+    return counts
+
+
+def sass_digests(sass: str) -> Dict[str, str]:
+    """kernel label -> a short hash of its instructions: equal digests mean
+    the same machine code, whatever else the library holds."""
+    return {name: hashlib.sha256("\n".join(instrs).encode()).hexdigest()[:16]
+            for name, instrs in sass_by_kernel(sass).items()}
+
+
+def dump_sass(name: str) -> str:
+    """`cuobjdump --dump-sass` of the built library `name`."""
+    path = build_all()[name]
+    return subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout

@@ -13,6 +13,8 @@ version of the same function:
     store, stats;
   * bwd_mega (K8, csrc/nhwc_conv_bwd.cu): the masked-BN input gradient dy,
     dX = conv of dy with the flipped, channel-transposed weights, and dW.
+K7's conv and K8's dX and dW run on the tensor cores (csrc/conv3x3_mma.cuh);
+their weights go in packed by _pack_conv_weights.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `<wrapper>.launches` counts the
@@ -33,6 +35,7 @@ the CUDA operand checks, and a plain reference of the masked DoubleConv.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -59,10 +62,19 @@ FUSED_MAX_CIN = 128
 # compare the hand-derived backward with autograd without rounding noise.
 COMPUTE_DTYPE = torch.bfloat16
 
-# Tile geometry of the CUDA conv kernels (csrc/conv3x3_core.cuh,
-# conv3x3_bwd.cuh); the wrappers size the kernels' partial sums from it.
+# Tile geometry of the CUDA-core conv kernels of K1/K2 (csrc/conv3x3_core.cuh,
+# conv3x3_bwd.cuh); the flat wrappers size the kernels' partial sums from it.
 _CONV_TH, _CONV_TW = 4, 32
 _DW_TR, _DW_TC, _DW_CI, _DW_CO = 2, 32, 16, 64
+# Tile geometry of the tensor-core kernels of K7/K8 (csrc/conv3x3_mma.cuh):
+# the conv's output tile (rows, columns), output channels a block and input
+# channels a stage (FW_*); dW's pixel tile (rows, columns) and channel
+# blocks, three taps (one kernel row) a block (DWM_*). _mma_lib checks it
+# against the library's own (cmx_nhwc_mma_geometry) when it loads one.
+_MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC = 8, 32, 64, 16
+_MMA_DW_TR, _MMA_DW_TC, _MMA_DW_CI, _MMA_DW_CO = 4, 32, 64, 64
+_MMA_GEOMETRY = (_MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC,
+                 _MMA_DW_TR, _MMA_DW_TC, _MMA_DW_CI, _MMA_DW_CO)
 _STEM_NT, _STEM_MAX_C = 256, 512
 
 
@@ -100,6 +112,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy when its data is not 16-byte aligned (the
+    tensor-core kernels copy the mask 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
                          other: dict, h_mult: int, w_mult: int) -> None:
     """Raise unless every operand lies on `dev` (a CUDA device), the
@@ -115,14 +133,78 @@ def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
                          f"W % {w_mult} == 0, got {H}x{W}")
 
 
-def _dw_chunks(tiles: int, Cin: int, C: int, dev: torch.device):
-    """(nchunks, tiles per chunk) of the dW kernel's bounded grid: about 4
-    blocks an SM over the (Cin, C) slices."""
-    slices = math.ceil(Cin / _DW_CI) * math.ceil(C / _DW_CO)
-    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _dw_chunks(tiles: int, slices: int, target: int):
+    """(nchunks, tiles per chunk) of a dW kernel's bounded split-K grid:
+    about `target` blocks over `slices` blocks a chunk, each chunk a run of
+    pixel tiles, every tile in exactly one chunk."""
     nchunks = min(tiles, max(1, math.ceil(target / slices)))
     per_chunk = math.ceil(tiles / nchunks)
     return math.ceil(tiles / per_chunk), per_chunk
+
+
+_mma_checked: set = set()
+
+
+def _mma_lib(name: str):
+    """The loaded NHWC library `name`; on first load, raise unless its tile
+    geometry is _MMA_GEOMETRY (by which the wrappers pack the weights and
+    size the partial sums)."""
+    lib = _build.load(name)
+    if name not in _mma_checked:
+        g = (ctypes.c_int * len(_MMA_GEOMETRY))()
+        lib.cmx_nhwc_mma_geometry(g)
+        if tuple(g) != _MMA_GEOMETRY:
+            raise RuntimeError(f"cmx_torch: {name}'s tile geometry is "
+                               f"{tuple(g)}, the wrapper's {_MMA_GEOMETRY}")
+        _mma_checked.add(name)
+    return lib
+
+
+def _pack_conv_weights(wk: torch.Tensor) -> torch.Tensor:
+    """(9, K, N) conv weights -> (ceil(N/64), ceil(K/16), 9, 16, 64), zero
+    padded: the tensor-core conv's B tiles (conv3x3_mma.cuh: FW_BN, FW_KC),
+    one contiguous block per (output-channel block, input-channel chunk),
+    taps in order dy*3+dx, rows input channels, columns output channels.
+    One copy when K and N fill their tiles, as on the main path."""
+    T, K, N = wk.shape
+    nk, nn = math.ceil(K / _MMA_KC), math.ceil(N / _MMA_BN)
+    if nk * _MMA_KC != K or nn * _MMA_BN != N:
+        wk = F.pad(wk, (0, nn * _MMA_BN - N, 0, nk * _MMA_KC - K))
+    return wk.reshape(T, nk, _MMA_KC, nn, _MMA_BN).permute(3, 1, 0, 2, 4
+                                                           ).contiguous()
+
+
+def _conv_part_rows(B: int, H: int, W: int) -> int:
+    """Partial-sum rows of K7: one per output tile of the tensor-core conv."""
+    return B * math.ceil(H / _MMA_TH) * math.ceil(W / _MMA_TW)
+
+
+def _dw_tiles(B: int, H: int, W: int) -> int:
+    """Pixel tiles of K8's tensor-core dW kernel."""
+    return B * math.ceil(H / _MMA_DW_TR) * math.ceil(W / _MMA_DW_TC)
+
+
+def _dw_slices(Cin: int, C: int) -> int:
+    """Blocks a chunk of K8's dW grid: three kernel rows x channel blocks."""
+    return 3 * math.ceil(Cin / _MMA_DW_CI) * math.ceil(C / _MMA_DW_CO)
+
+
+_dw_resident: dict = {}
+
+
+def _dw_blocks_per_sm(lib, pre_h: bool) -> int:
+    """Resident dW blocks an SM, as the CUDA runtime reports it (cached)."""
+    if pre_h not in _dw_resident:
+        n = lib.cmx_nhwc_dw_blocks_per_sm(int(pre_h))
+        if n < 1:
+            raise RuntimeError("cmx_torch: the dW kernel cannot be resident "
+                               "on this device")
+        _dw_resident[pre_h] = n
+    return _dw_resident[pre_h]
 
 
 # ---------------------------------------------------------------------------
@@ -219,20 +301,20 @@ def _conv_cuda(src, m, w, b, inv, shift):
                          f"{tuple(w.shape)} m {tuple(m.shape)}")
     _check_cuda_operands(H, W, src.device, dict(src=src),
                          dict(m=m, w=w, b=b, inv=inv, shift=shift), STRIP, 8)
-    lib = _build.load("nhwc_conv_fwd")
+    lib = _mma_lib("nhwc_conv_fwd")
     dev = src.device
     src = src.contiguous()
-    mask = m.to(torch.bfloat16).contiguous()
-    wk = w.to(torch.bfloat16).reshape(9, Cin, C).contiguous()
+    mask = _aligned16(m.to(torch.bfloat16).contiguous())
+    wp = _pack_conv_weights(w.to(torch.bfloat16).reshape(9, Cin, C))
     bias = b.float().contiguous()
     prenorm = inv is not None
     inv_ = inv.float().contiguous() if prenorm else None
     shift_ = shift.float().contiguous() if prenorm else None
     y = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
-    nblk = B * math.ceil(H / _CONV_TH) * math.ceil(W / _CONV_TW)
+    nblk = _conv_part_rows(B, H, W)
     part = torch.empty((nblk, 2, C), dtype=torch.float32, device=dev)
     err = lib.cmx_nhwc_conv_fwd(
-        _ptr(src), _ptr(mask), _ptr(inv_), _ptr(shift_), _ptr(wk), _ptr(bias),
+        _ptr(src), _ptr(mask), _ptr(inv_), _ptr(shift_), _ptr(wp), _ptr(bias),
         _ptr(y), _ptr(part), B, Cin, C, H, W, int(prenorm), _stream(y))
     _build.check(err, "conv3x3_mask_stats")
     conv3x3_mask_stats.launches += 1
@@ -304,23 +386,24 @@ def _bwd_mega_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
         H, W, y.device, dict(g=g, y=y, src=src),
         dict(m=m, inv=inv, shift=shift, mean=mean, var=var, s1=s1, s2=s2,
              w=w, pinv=pinv, pshift=pshift), STRIP, 8)
-    lib = _build.load("nhwc_conv_bwd")
+    lib = _mma_lib("nhwc_conv_bwd")
     dev = y.device
-    mask = m.to(torch.bfloat16).contiguous()
+    mask = _aligned16(m.to(torch.bfloat16).contiguous())
     vecs = torch.stack([v.float() for v in _bwd_vecs(
         inv, shift, mean, var, s1, s2, nact)]).contiguous()  # (6, C)
     if prev_fold is not None:
         pinv, pshift = pinv.float().contiguous(), pshift.float().contiguous()
     wt = w.flip(0, 1).permute(0, 1, 3, 2).reshape(9, C, Cin)
-    wt = wt.to(torch.bfloat16).contiguous()
+    wtp = _pack_conv_weights(wt.to(torch.bfloat16))
     dy = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
     dh = torch.empty((B, H, W, Cin), dtype=torch.bfloat16, device=dev)
-    tiles = B * (H // _DW_TR) * math.ceil(W / _DW_TC)
-    nchunks, per_chunk = _dw_chunks(tiles, Cin, C, dev)
+    resident = _dw_blocks_per_sm(lib, prev_fold is not None) * _sms(dev)
+    nchunks, per_chunk = _dw_chunks(_dw_tiles(B, H, W), _dw_slices(Cin, C),
+                                    resident)
     part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
     err = lib.cmx_nhwc_bwd(
         _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),
-        _ptr(pshift), _ptr(wt), _ptr(dy), _ptr(dh), _ptr(part),
+        _ptr(pshift), _ptr(wtp), _ptr(dy), _ptr(dh), _ptr(part),
         B, Cin, C, H, W, int(prev_fold is not None), nchunks, per_chunk,
         _stream(y))
     _build.check(err, "bwd_mega")

@@ -21,16 +21,17 @@ exact-zero gradients: batch norm absorbs them).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from cmx_torch.ops import _build
-from cmx_torch.ops.fused_conv import (_CONV_TH, _CONV_TW, _DW_TC, _DW_TR,
-                                        _EPS, _bwd_vecs, _cdt,
+from cmx_torch.ops.fused_conv import (_CONV_TH, _CONV_TW, _DW_CI, _DW_CO,
+                                        _DW_TC, _DW_TR, _EPS, _bwd_vecs, _cdt,
                                         _check_cuda_operands, _dw_chunks,
-                                        _fold, _ptr, _stats, _stream)
+                                        _fold, _ptr, _sms, _stats, _stream)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +164,8 @@ def _flat_bwd_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w, H, W,
     dh = (torch.empty((B, Cin, HW), dtype=torch.bfloat16, device=dev)
           if need_dx else None)
     tiles = B * (H // _DW_TR) * (W // _DW_TC)
-    nchunks, per_chunk = _dw_chunks(tiles, Cin, C, dev)
+    slices = math.ceil(Cin / _DW_CI) * math.ceil(C / _DW_CO)
+    nchunks, per_chunk = _dw_chunks(tiles, slices, 4 * _sms(dev))
     part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
     err = lib.cmx_flat_bwd(
         _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),

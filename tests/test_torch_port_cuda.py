@@ -10,7 +10,8 @@ staging chunk, Cout not a multiple of the channel tile) to exercise the
 bounds checks; the main path's full-width shapes are covered by
 chip_smoke.py. The NHWC kernels (K6-K8) take H % 32 == 0 and W % 8 == 0;
 their shapes include W = 40 (8 times an odd number: a column tile that
-overhangs the image) and Cin 1, 3, 64 and 128. Tolerances: bf16 outputs rel
+overhangs the image), Cin 1, 3, 8, 24, 64 and 128 and Cout 20, 64, 96 and
+128 (the edges of the tensor-core tiles of K7/K8). Tolerances: bf16 outputs rel
 1e-2 of the largest entry (a one-ulp bf16 rounding flip), fp32 sums rel
 1e-3 (summation order); the fp32 crop (K4) rel 1e-5 (its weights equal the
 plain version's op for op; the products sum in another order); K5 in fp32
@@ -193,8 +194,13 @@ def _nhwc_inputs(dev, B, H, W, cin, C, seed=0):
     return g, m, src, w, b, inv, shift
 
 
+# The tensor-core kernels' tile edges: Cin 3, 8, 24 (K not a multiple of
+# 16 or of the 32-channel stage), Cout 20 and 96 (N not a multiple of the
+# 64-channel block), W 40 and 24 (a partial 32-column tile), and the main
+# path's widths at a small spatial size.
 NHWC_SHAPES = [(2, 32, 40, 3, 20), (1, 32, 40, 64, 64), (1, 64, 32, 128, 96),
-               (2, 32, 24, 128, 128)]
+               (2, 32, 24, 128, 128), (1, 32, 40, 8, 20), (2, 32, 40, 24, 96),
+               (1, 32, 32, 64, 128), (2, 32, 64, 128, 128)]
 
 
 @pytest.mark.parametrize("B,H,W,C", [(2, 32, 40, 64), (1, 64, 24, 20),
@@ -305,6 +311,45 @@ def test_bn_relu_mask_kernel_matches_plain(dev, dtype, shape):
     assert po.bn_relu_mask_pallas.launches == n0 + 1
     assert out.dtype == dtype and out.shape == x.shape
     assert _rel(out, ref) <= (1e-6 if dtype == torch.float32 else 1e-2)
+
+
+# Spill bytes each tensor-core kernel may have (ptxas -v): the pre-norm
+# forward keeps its fold registers beside 64 accumulators under the
+# 128-register cap of two blocks an SM (csrc/conv3x3_mma.cuh).
+SPILL_BUDGET = {"cmx::conv3x3_mma_kernel<true,true>": 8}
+
+
+def test_nhwc_kernels_run_on_the_tensor_cores(dev):
+    """K7's conv and K8's dX and dW kernels hold tensor-core instructions
+    (cuobjdump --dump-sass of the built libraries) and spill no more than
+    SPILL_BUDGET (ptxas -v, from the build's log)."""
+    from cmx_torch.ops import _build
+
+    want = {"nhwc_conv_fwd": ["cmx::conv3x3_mma_kernel<true,true>",
+                              "cmx::conv3x3_mma_kernel<false,true>"],
+            "nhwc_conv_bwd": ["cmx::conv3x3_mma_kernel<false,false>",
+                              "cmx::conv3x3_dw_mma_kernel<true>",
+                              "cmx::conv3x3_dw_mma_kernel<false>"]}
+    for lib, kernels in want.items():
+        counts = _build.sass_counts(_build.dump_sass(lib))
+        for k in kernels:
+            assert sum(counts[k].values()) > 0, (lib, k, counts.get(k))
+        usage = _build.ptxas_usage(_build.build_log(lib))
+        for k in kernels:
+            if k in usage:
+                budget = SPILL_BUDGET.get(k, 0)
+                assert max(usage[k][1:]) <= budget, (k, usage[k])
+
+
+def test_nhwc_libraries_report_the_wrappers_tile_geometry(dev):
+    import ctypes
+
+    from cmx_torch.ops import fused_conv as fc
+
+    for lib in ("nhwc_conv_fwd", "nhwc_conv_bwd"):
+        g = (ctypes.c_int * len(fc._MMA_GEOMETRY))()
+        assert fc._mma_lib(lib).cmx_nhwc_mma_geometry(g) == 0
+        assert tuple(g) == fc._MMA_GEOMETRY
 
 
 def test_nhwc_wrappers_refuse_what_the_kernels_do_not_take(dev):
