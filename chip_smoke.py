@@ -8,8 +8,8 @@ Phases (any failure exits non-zero):
      one process per source, in parallel); ptxas registers and spills of
      each kernel, every kernel's SASS digest (_build.sass_digests: equal
      digests, equal machine code), and the tensor-core instructions
-     (HMMA/HGMMA) that cuobjdump --dump-sass finds in K7's conv and K8's dX
-     and dW kernels (fails if one has none).
+     (HMMA/HGMMA) that cuobjdump --dump-sass finds in K1's and K7's conv and
+     in K2's and K8's dX and dW kernels (fails if one has none).
 SparK (task.name=spark, model.fused_conv=True, task.pallas_loss=True, full
 widths, 256^2, bf16, batch 32, LAMB lr 2e-4 wd 0.04 clip 5), as the CLI
 builds it:
@@ -18,7 +18,7 @@ builds it:
      its public wrapper and through its plain PyTorch version on the same
      operands: error and tolerance, kernel / plain / library time (CUDA
      events), and the least time the card could take for the same work
-     (bound);
+     (bound); K1's and K2's times by call, the stem (Cin = 1) apart;
   2. the main path: launch counters zeroed, SPARK_STEPS steps, every
      kernel's count checked against the recorded calls per step (K4 none),
      finite loss and grad norm, step time; a torch.profiler window of two
@@ -81,9 +81,17 @@ MOCO_BATCH = 256  # the moco preset's batch
 MOCO_STEPS = 8    # steps of a MoCo run (the first two are warm-up)
 ITERS = 5         # timed launches per kernel measurement
 
-# The tensor-core kernels behind K7 and K8 (cmx_torch/csrc/conv3x3_mma.cuh),
-# by wrapper: (library, kernel label as _build.kernel_label gives it).
+# The tensor-core kernels behind K1, K2, K7 and K8
+# (cmx_torch/csrc/conv3x3_mma.cuh), by wrapper: (library, kernel label as
+# _build.kernel_label gives it).
 TC_KERNELS = {
+    "flat_conv3x3_mask_stats": [
+        ("flat_conv_fwd", "cmx::flat_conv3x3_mma_kernel<true,true>"),
+        ("flat_conv_fwd", "cmx::flat_conv3x3_mma_kernel<false,true>")],
+    "flat_bwd_mega": [
+        ("flat_conv_bwd", "cmx::flat_conv3x3_mma_kernel<false,false>"),
+        ("flat_conv_bwd", "cmx::flat_dw_mma_kernel<true>"),
+        ("flat_conv_bwd", "cmx::flat_dw_mma_kernel<false>")],
     "conv3x3_mask_stats": [("nhwc_conv_fwd", "cmx::conv3x3_mma_kernel<true,true>"),
                            ("nhwc_conv_fwd", "cmx::conv3x3_mma_kernel<false,true>")],
     "bwd_mega": [("nhwc_conv_bwd", "cmx::conv3x3_mma_kernel<false,false>"),
@@ -436,6 +444,9 @@ def kernel_phase(calls, iters: int):
         r = res.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                       library_ms=None, flops=0.0, nbytes=0.0,
                                       peak=peak))
+        if name in FLAT_KERNELS:
+            r.setdefault("calls", []).append(
+                (Cin == 1, f"{Cin}->{C} {H}x{W}", t_k, lib_ms))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += t_k
         r["plain_ms"] += t_p
@@ -666,6 +677,7 @@ def reference_phase(label: str):
 
 SPARK_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega",
                  "spark_loss_pallas")
+FLAT_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega")
 NHWC_PER_STEP = {"conv_stem_stats": 1, "conv3x3_mask_stats": 3,
                  "bwd_mega": 3, "spark_loss_pallas": 1}
 NHWC_KERNELS = ("conv_stem_stats", "conv3x3_mask_stats", "bwd_mega")
@@ -904,6 +916,16 @@ def main() -> int:
     kern = kernel_phase(calls, ITERS)
     del calls
     torch.cuda.empty_cache()
+    def show(cs):
+        return ", ".join(f"{c[1]} {c[2]:.4f} / {c[3]:.4f}" for c in cs)
+
+    for name in FLAT_KERNELS:
+        calls = kern[name]["calls"]
+        rest = [c for c in calls if not c[0]]
+        print(f"{name} by call (kernel_ms / library_ms): stem "
+              f"{show(c for c in calls if c[0])}; the rest "
+              f"{sum(c[2] for c in rest):.4f} ms: {show(rest)}; the largest "
+              f"call: {max(calls, key=lambda c: c[2])[1]}", flush=True)
     spark_launches, step_ms = step_phase(state, step, imgs, per_step,
                                          SPARK_STEPS, "fused",
                                          ff.FlatDoubleConv)

@@ -12,8 +12,8 @@
 // the tensor cores (conv3x3_mma.cuh):
 //   1. dy: bn_bwd_dy_nhwc_kernel, 8 channels (16 bytes) a thread, written
 //      once in bf16 (the TPU kernel kept dy in VMEM; here it makes one round
-//      trip through device memory); conv3x3_bwd.cuh's element-wise
-//      bn_bwd_dy_kernel when Cout % 8 != 0;
+//      trip through device memory); the element-wise bn_bwd_dy_kernel
+//      when Cout % 8 != 0;
 //   2. dX: K7's implicit GEMM (conv3x3_mma_kernel) over dy with the packed
 //      flipped, channel-transposed weights, no prologue, no stats;
 //   3. dW: conv3x3_dw_mma_kernel, pixels as the GEMM's K dimension, h
@@ -24,12 +24,43 @@
 // Tiles overhanging the right image edge are masked, so any W % 8 == 0 runs.
 #include <climits>
 
-#include "conv3x3_bwd.cuh"
 #include "conv3x3_mma.cuh"
 
 namespace cmx {
 
-// dy: conv3x3_bwd.cuh's bn_bwd_dy_kernel, each operation rounded in the same
+// dy for a Cout that is not a multiple of 8: the masked-BN input gradient
+// over channels-last (P, C) maps, one element a thread:
+//   dz = g*m*[y*inv+shift > 0],  xh = (y-mean)*rr,
+//   dy = bf16((m*inv) * (dz - s1/nact - xh*s2/nact)),
+// vecs (6, C) fp32 rows inv, shift, mean, rr, s1/nact, s2/nact; total =
+// P*C. The vectorized passes (bn_bwd_dy_nhwc_kernel below, flat_conv_bwd.cu's
+// bn_bwd_dy_cm_kernel) round each operation in this order too.
+__global__ void bn_bwd_dy_kernel(const __nv_bfloat16* __restrict__ g,
+                                 const __nv_bfloat16* __restrict__ y,
+                                 const __nv_bfloat16* __restrict__ mask,
+                                 const float* __restrict__ vecs,
+                                 __nv_bfloat16* __restrict__ dy, int C,
+                                 size_t total) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C);
+    const size_t pix = i / C;  // the mask's index
+    const float inv = vecs[c], shift = vecs[C + c], mean = vecs[2 * C + c];
+    const float rr = vecs[3 * C + c], s1n = vecs[4 * C + c];
+    const float s2n = vecs[5 * C + c];
+    const float gv = __bfloat162float(g[i]);
+    const float yv = __bfloat162float(y[i]);
+    const float mv = __bfloat162float(mask[pix]);
+    // Each operation rounds on its own, in the plain version's order.
+    const bool gate = __fadd_rn(__fmul_rn(yv, inv), shift) > 0.f;
+    const float dz = __fmul_rn(__fmul_rn(gv, mv), gate ? 1.f : 0.f);
+    const float xh = __fmul_rn(__fsub_rn(yv, mean), rr);
+    const float t = __fsub_rn(__fsub_rn(dz, s1n), __fmul_rn(xh, s2n));
+    dy[i] = __float2bfloat16(__fmul_rn(__fmul_rn(mv, inv), t));
+  }
+}
+
+// dy: bn_bwd_dy_kernel, each operation rounded in the same
 // order, 8 channels (16 bytes) a thread with the six per-channel vectors in
 // shared memory. g, y, dy (P, C) bf16 with C % 8 == 0 and 16-byte aligned
 // rows; mask (P,); vecs (6, C) fp32 rows inv, shift, mean, rr, s1/nact,
@@ -100,32 +131,32 @@ extern "C" int cmx_nhwc_bwd(const void* g, const void* y, const void* src,
     const int blocks = (int)((total + 255) / 256 < 132 * 32
                                  ? (total + 255) / 256
                                  : 132 * 32);
-    bn_bwd_dy_kernel<true><<<blocks, 256, 0, s>>>(bf(g), bf(y), bf(mask),
-                                                  f32(vecs), dyp, Cout,
-                                                  (size_t)H * W, total);
+    bn_bwd_dy_kernel<<<blocks, 256, 0, s>>>(bf(g), bf(y), bf(mask), f32(vecs),
+                                            dyp, Cout, total);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = launch_conv3x3_mma<false, false>(
+  err = launch_conv3x3_mma<false, false, false>(
       dyp, nullptr, nullptr, nullptr, bf(wtpack), nullptr,
       static_cast<__nv_bfloat16*>(dh), nullptr, B, Cout, Cin, H, W, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   auto part = static_cast<float*>(dw_part);
   if (pre_h)
-    err = launch_dw_mma<true>(bf(src), bf(mask), f32(prev_inv),
-                              f32(prev_shift), dyp, part, B, Cin, Cout, H, W,
-                              nchunks, tiles_per_chunk, s);
+    err = launch_dw_mma<false, true>(bf(src), bf(mask), f32(prev_inv),
+                                     f32(prev_shift), dyp, part, B, Cin, Cout,
+                                     H, W, nchunks, tiles_per_chunk, s);
   else
-    err = launch_dw_mma<false>(bf(src), bf(mask), nullptr, nullptr, dyp, part,
-                               B, Cin, Cout, H, W, nchunks, tiles_per_chunk, s);
+    err = launch_dw_mma<false, false>(bf(src), bf(mask), nullptr, nullptr, dyp,
+                                      part, B, Cin, Cout, H, W, nchunks,
+                                      tiles_per_chunk, s);
   return static_cast<int>(err);
 }
 
 // Resident blocks a multiprocessor of the dW kernel (with or without the
 // pre-norm prologue), 0 on error: the wrapper sizes the split-K grid by it.
-extern "C" int cmx_nhwc_dw_blocks_per_sm(int pre_h) {
-  return pre_h ? cmx::dw_mma_blocks_per_sm<true>()
-               : cmx::dw_mma_blocks_per_sm<false>();
+extern "C" int cmx_dw_blocks_per_sm(int pre_h) {
+  return pre_h ? cmx::dw_mma_blocks_per_sm<false, true>()
+               : cmx::dw_mma_blocks_per_sm<false, false>();
 }

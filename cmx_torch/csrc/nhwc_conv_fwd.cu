@@ -129,12 +129,13 @@ extern "C" int cmx_nhwc_conv_fwd(const void* src, const void* mask,
   auto part_ = static_cast<float*>(part);
   cudaError_t err;
   if (prenorm)
-    err = launch_conv3x3_mma<true, true>(src_, mask_, inv_, shift_, wp_, bias_,
-                                         y_, part_, B, Cin, Cout, H, W, s);
+    err = launch_conv3x3_mma<false, true, true>(src_, mask_, inv_, shift_, wp_,
+                                                bias_, y_, part_, B, Cin, Cout,
+                                                H, W, s);
   else
-    err = launch_conv3x3_mma<false, true>(src_, mask_, inv_, shift_, wp_,
-                                          bias_, y_, part_, B, Cin, Cout, H, W,
-                                          s);
+    err = launch_conv3x3_mma<false, false, true>(src_, mask_, inv_, shift_, wp_,
+                                                 bias_, y_, part_, B, Cin, Cout,
+                                                 H, W, s);
   return static_cast<int>(err);
 }
 

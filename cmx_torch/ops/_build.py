@@ -15,6 +15,12 @@ While `recorded` is a list, every kernel wrapper (CUDA, Triton or its CPU
 path) appends `(wrapper name, copies of its arguments)` of each call to it:
 chip_smoke.py records one train step this way and replays the calls to hold
 each kernel against its plain version at exactly the step's operands.
+
+    python -m cmx_torch.ops._build OTHER_CSRC OUT_DIR
+
+builds every `*.cu` of another checkout's `cmx_torch/csrc` with this file's
+flags into OUT_DIR and prints, as JSON, each library's SASS digests and
+those of this checkout's build (equal digests, equal machine code).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -38,15 +45,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C entry points and their argument types (p = pointer, i = int).
 _SIGNATURES = {
-    "flat_conv_fwd": {"cmx_flat_conv_fwd": "pppppppp" + "iiiiii" + "p"},
-    "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p"},
+    "flat_conv_fwd": {"cmx_flat_conv_fwd": "pppppppp" + "iiiiii" + "p",
+                      "cmx_mma_geometry": "p"},
+    "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p",
+                      "cmx_dw_blocks_per_sm": "i",
+                      "cmx_mma_geometry": "p"},
     "crop_resize": {"cmx_crop_resize": "pppppp" + "iiiii" + "p"},
     "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
                       "cmx_nhwc_stem": "pppppp" + "iii" + "p",
-                      "cmx_nhwc_mma_geometry": "p"},
+                      "cmx_mma_geometry": "p"},
     "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p",
-                      "cmx_nhwc_dw_blocks_per_sm": "i",
-                      "cmx_nhwc_mma_geometry": "p"},
+                      "cmx_dw_blocks_per_sm": "i",
+                      "cmx_mma_geometry": "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
@@ -77,32 +87,35 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _nvcc_all(csrc: Path, outs: Dict[str, Path]) -> Dict[str, str]:
+    """Compile `csrc/<name>.cu` into outs[name] for every name, one nvcc
+    process each, all at once; name -> nvcc's output. Raises, after every
+    process has ended, if one failed."""
+    nvcc = _nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
+         str(csrc / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, out in outs.items()}
+    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    failed = [f"{name}:\n{logs[name]}" for name, proc in procs.items()
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("cmx_torch: nvcc failed\n" + "\n".join(failed))
+    return logs
+
+
 def build_all() -> Dict[str, Path]:
     """Compile every source that has no up-to-date library, in parallel."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in _SIGNATURES}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if todo:
-        nvcc = _nvcc()
-        procs = {}
-        for name, out in todo.items():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, out)
-        failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
+        tmps = {n: p.with_suffix(f".{os.getpid()}.tmp") for n, p in todo.items()}
+        for name, log in _nvcc_all(CSRC, tmps).items():
             build_logs[name] = log
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
-            else:
-                out.with_suffix(".log").write_text(log)
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("cmx_torch: nvcc failed\n" + "\n".join(failed))
+            todo[name].with_suffix(".log").write_text(log)
+            os.replace(tmps[name], todo[name])
     return paths
 
 
@@ -233,8 +246,28 @@ def sass_digests(sass: str) -> Dict[str, str]:
             for name, instrs in sass_by_kernel(sass).items()}
 
 
-def dump_sass(name: str) -> str:
-    """`cuobjdump --dump-sass` of the built library `name`."""
-    path = build_all()[name]
+def _sass_of(path: Path) -> str:
     return subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(path)],
                           capture_output=True, text=True, check=True).stdout
+
+
+def dump_sass(name: str) -> str:
+    """`cuobjdump --dump-sass` of the built library `name`."""
+    return _sass_of(build_all()[name])
+
+
+def digests_of_sources(csrc: Path, out: Path) -> Dict[str, Dict[str, str]]:
+    """library -> kernel label -> SASS digest of every `*.cu` under `csrc`,
+    each built with NVCC_FLAGS into `out` (in parallel)."""
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {f.stem: out / f"{f.stem}.so" for f in sorted(csrc.glob("*.cu"))}
+    _nvcc_all(csrc, libs)
+    return {name: sass_digests(_sass_of(lib)) for name, lib in libs.items()}
+
+
+if __name__ == "__main__":
+    import json
+
+    other = digests_of_sources(Path(sys.argv[1]), Path(sys.argv[2]))
+    this = {name: sass_digests(dump_sass(name)) for name in build_all()}
+    print(json.dumps({"other": other, "this": this}))

@@ -13,7 +13,8 @@ version of the same function:
     store, stats;
   * bwd_mega (K8, csrc/nhwc_conv_bwd.cu): the masked-BN input gradient dy,
     dX = conv of dy with the flipped, channel-transposed weights, and dW.
-K7's conv and K8's dX and dW run on the tensor cores (csrc/conv3x3_mma.cuh);
+K7's conv and K8's dX and dW run on the tensor cores (csrc/conv3x3_mma.cuh,
+which also holds the channel-major instances of the flat impl's K1/K2);
 their weights go in packed by _pack_conv_weights.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
@@ -30,7 +31,9 @@ conv backward (cmx leaves both to XLA) and its conv bias gets sum(dy).
 
 Also here, shared with the flat impl (fused_conv_flat.py): the gates and
 module switches, the BN fold and the naive masked moments of the fused path,
-the CUDA operand checks, and a plain reference of the masked DoubleConv.
+the CUDA operand checks, the tensor-core tile geometry with the weight
+packing and split-K arithmetic built on it, and a plain reference of the
+masked DoubleConv.
 """
 
 from __future__ import annotations
@@ -62,15 +65,12 @@ FUSED_MAX_CIN = 128
 # compare the hand-derived backward with autograd without rounding noise.
 COMPUTE_DTYPE = torch.bfloat16
 
-# Tile geometry of the CUDA-core conv kernels of K1/K2 (csrc/conv3x3_core.cuh,
-# conv3x3_bwd.cuh); the flat wrappers size the kernels' partial sums from it.
-_CONV_TH, _CONV_TW = 4, 32
-_DW_TR, _DW_TC, _DW_CI, _DW_CO = 2, 32, 16, 64
-# Tile geometry of the tensor-core kernels of K7/K8 (csrc/conv3x3_mma.cuh):
+# Tile geometry of the tensor-core kernels (csrc/conv3x3_mma.cuh) of K7/K8
+# and, channel-major, of K1/K2:
 # the conv's output tile (rows, columns), output channels a block and input
 # channels a stage (FW_*); dW's pixel tile (rows, columns) and channel
 # blocks, three taps (one kernel row) a block (DWM_*). _mma_lib checks it
-# against the library's own (cmx_nhwc_mma_geometry) when it loads one.
+# against the library's own (cmx_mma_geometry) when it loads one.
 _MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC = 8, 32, 64, 16
 _MMA_DW_TR, _MMA_DW_TC, _MMA_DW_CI, _MMA_DW_CO = 4, 32, 64, 64
 _MMA_GEOMETRY = (_MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC,
@@ -118,6 +118,13 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_hw(H: int, W: int, h_mult: int, w_mult: int) -> None:
+    """Raise unless H and W are multiples of what the kernel takes."""
+    if H % h_mult or W % w_mult:
+        raise ValueError(f"the CUDA kernel needs H % {h_mult} == 0 and "
+                         f"W % {w_mult} == 0, got {H}x{W}")
+
+
 def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
                          other: dict, h_mult: int, w_mult: int) -> None:
     """Raise unless every operand lies on `dev` (a CUDA device), the
@@ -128,9 +135,7 @@ def _check_cuda_operands(H: int, W: int, dev: torch.device, bf16: dict,
     for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernel takes bf16 {name}, got {t.dtype}")
-    if H % h_mult or W % w_mult:
-        raise ValueError(f"the CUDA kernel needs H % {h_mult} == 0 and "
-                         f"W % {w_mult} == 0, got {H}x{W}")
+    _check_hw(H, W, h_mult, w_mult)
 
 
 def _sms(dev: torch.device) -> int:
@@ -150,13 +155,13 @@ _mma_checked: set = set()
 
 
 def _mma_lib(name: str):
-    """The loaded NHWC library `name`; on first load, raise unless its tile
-    geometry is _MMA_GEOMETRY (by which the wrappers pack the weights and
-    size the partial sums)."""
+    """The loaded tensor-core conv library `name`; on first load, raise
+    unless its tile geometry is _MMA_GEOMETRY (by which the wrappers pack
+    the weights and size the partial sums)."""
     lib = _build.load(name)
     if name not in _mma_checked:
         g = (ctypes.c_int * len(_MMA_GEOMETRY))()
-        lib.cmx_nhwc_mma_geometry(g)
+        lib.cmx_mma_geometry(g)
         if tuple(g) != _MMA_GEOMETRY:
             raise RuntimeError(f"cmx_torch: {name}'s tile geometry is "
                                f"{tuple(g)}, the wrapper's {_MMA_GEOMETRY}")
@@ -179,32 +184,39 @@ def _pack_conv_weights(wk: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_part_rows(B: int, H: int, W: int) -> int:
-    """Partial-sum rows of K7: one per output tile of the tensor-core conv."""
+    """Partial-sum rows of K7 / K1: one per output tile of the tensor-core
+    conv."""
     return B * math.ceil(H / _MMA_TH) * math.ceil(W / _MMA_TW)
 
 
 def _dw_tiles(B: int, H: int, W: int) -> int:
-    """Pixel tiles of K8's tensor-core dW kernel."""
+    """Pixel tiles of K8's / K2's tensor-core dW kernel."""
     return B * math.ceil(H / _MMA_DW_TR) * math.ceil(W / _MMA_DW_TC)
 
 
 def _dw_slices(Cin: int, C: int) -> int:
-    """Blocks a chunk of K8's dW grid: three kernel rows x channel blocks."""
+    """Blocks a chunk of K8's / K2's dW grid: three kernel rows x channel
+    blocks."""
     return 3 * math.ceil(Cin / _MMA_DW_CI) * math.ceil(C / _MMA_DW_CO)
 
 
 _dw_resident: dict = {}
 
 
-def _dw_blocks_per_sm(lib, pre_h: bool) -> int:
-    """Resident dW blocks an SM, as the CUDA runtime reports it (cached)."""
-    if pre_h not in _dw_resident:
-        n = lib.cmx_nhwc_dw_blocks_per_sm(int(pre_h))
+def _dw_grid(name: str, dev: torch.device, B: int, H: int, W: int, Cin: int,
+             C: int, pre_h: bool):
+    """(nchunks, tiles per chunk) of library `name`'s dW kernel: one wave
+    of the blocks the CUDA runtime can keep resident (cached per library and
+    prologue)."""
+    key = (name, pre_h)
+    if key not in _dw_resident:
+        n = _build.load(name).cmx_dw_blocks_per_sm(int(pre_h))
         if n < 1:
-            raise RuntimeError("cmx_torch: the dW kernel cannot be resident "
-                               "on this device")
-        _dw_resident[pre_h] = n
-    return _dw_resident[pre_h]
+            raise RuntimeError(f"cmx_torch: {name}'s dW kernel cannot be "
+                               "resident on this device")
+        _dw_resident[key] = n
+    return _dw_chunks(_dw_tiles(B, H, W), _dw_slices(Cin, C),
+                      _dw_resident[key] * _sms(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -397,9 +409,8 @@ def _bwd_mega_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w,
     wtp = _pack_conv_weights(wt.to(torch.bfloat16))
     dy = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
     dh = torch.empty((B, H, W, Cin), dtype=torch.bfloat16, device=dev)
-    resident = _dw_blocks_per_sm(lib, prev_fold is not None) * _sms(dev)
-    nchunks, per_chunk = _dw_chunks(_dw_tiles(B, H, W), _dw_slices(Cin, C),
-                                    resident)
+    nchunks, per_chunk = _dw_grid("nhwc_conv_bwd", dev, B, H, W, Cin, C,
+                                  prev_fold is not None)
     part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
     err = lib.cmx_nhwc_bwd(
         _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),

@@ -9,6 +9,10 @@ same function:
     store, per-channel sum / sum of squares of the fp32 result;
   * flat_bwd_mega (K2, csrc/flat_conv_bwd.cu): the masked-BN input gradient
     dy, dX = conv of dy with the flipped, channel-transposed weights, and dW.
+Their conv, dX and dW run on the tensor cores, in the channel-major
+instances of K7/K8's implicit GEMMs (csrc/conv3x3_mma.cuh): the same tiles,
+weight packing and split-K grid (fused_conv._MMA_*), so the kernels take
+H % 8 == 0 (the 8-row tile) and W % 8 == 0 (whole 16-byte words a row).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `<wrapper>.launches` counts the
@@ -21,17 +25,22 @@ exact-zero gradients: batch norm absorbs them).
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from cmx_torch.ops import _build
-from cmx_torch.ops.fused_conv import (_CONV_TH, _CONV_TW, _DW_CI, _DW_CO,
-                                        _DW_TC, _DW_TR, _EPS, _bwd_vecs, _cdt,
-                                        _check_cuda_operands, _dw_chunks,
-                                        _fold, _ptr, _sms, _stats, _stream)
+from cmx_torch.ops.fused_conv import (_EPS, _aligned16, _bwd_vecs, _cdt,
+                                        _check_cuda_operands, _conv_part_rows,
+                                        _dw_grid, _fold, _mma_lib,
+                                        _pack_conv_weights, _ptr, _stats,
+                                        _stream)
+
+# What the flat kernels take: H % 8 == 0 (the conv's 8-row output tile, two
+# 4-row dW tiles) and W % 8 == 0 (a channel's image row is whole 16-byte
+# words, the unit the kernels stage and store).
+_FLAT_HW_MULT = (8, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -62,21 +71,22 @@ def _flat_conv_cuda(src, m, w, b, H, W, inv, shift):
         raise ValueError(f"bad shapes src {tuple(src.shape)} w {tuple(w.shape)}")
     _check_cuda_operands(H, W, src.device, dict(src=src),
                          dict(m=m, w=w, b=b, inv=inv, shift=shift),
-                         _CONV_TH, _CONV_TW)
-    lib = _build.load("flat_conv_fwd")
-    src = src.contiguous()
-    mask = m.reshape(B, HW).to(torch.bfloat16).contiguous()
-    wk = w.to(torch.bfloat16).reshape(9, Cin, C).contiguous()
+                         *_FLAT_HW_MULT)
+    lib = _mma_lib("flat_conv_fwd")
+    dev = src.device
+    src = _aligned16(src.contiguous())
+    mask = _aligned16(m.reshape(B, HW).to(torch.bfloat16).contiguous())
+    wp = _pack_conv_weights(w.to(torch.bfloat16).reshape(9, Cin, C))
     bias = b.float().contiguous()
     prenorm = inv is not None
     inv_ = inv.float().contiguous() if prenorm else None
     shift_ = shift.float().contiguous() if prenorm else None
-    y = torch.empty((B, C, HW), dtype=torch.bfloat16, device=src.device)
-    nblk = B * (H // _CONV_TH) * (W // _CONV_TW)
-    part = torch.empty((nblk, 2, C), dtype=torch.float32, device=src.device)
+    y = torch.empty((B, C, HW), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((_conv_part_rows(B, H, W), 2, C), dtype=torch.float32,
+                       device=dev)
     err = lib.cmx_flat_conv_fwd(
-        _ptr(src), _ptr(mask), _ptr(inv_), _ptr(shift_), _ptr(wk), _ptr(bias),
-        _ptr(y), _ptr(part), B, Cin, C, H, W, int(prenorm), _stream(src))
+        _ptr(src), _ptr(mask), _ptr(inv_), _ptr(shift_), _ptr(wp), _ptr(bias),
+        _ptr(y), _ptr(part), B, Cin, C, H, W, int(prenorm), _stream(y))
     _build.check(err, "flat_conv3x3_mask_stats")
     flat_conv3x3_mask_stats.launches += 1
     s = part.sum(0)
@@ -145,31 +155,33 @@ def _flat_bwd_cuda(g, y, src, m, inv, shift, mean, var, s1, s2, nact, w, H, W,
         raise ValueError(f"bad shapes y {tuple(y.shape)} w {tuple(w.shape)}")
     if _cdt() != torch.bfloat16:
         raise TypeError(f"the CUDA kernel computes in bf16, not {_cdt()}")
-    g, y, src = (t.to(torch.bfloat16).contiguous() for t in (g, y, src))
+    g, y, src = (_aligned16(t.to(torch.bfloat16).contiguous())
+                 for t in (g, y, src))
     pinv, pshift = (None, None) if prev_fold is None else prev_fold
     _check_cuda_operands(
         H, W, y.device, dict(g=g, y=y, src=src),
         dict(m=m, inv=inv, shift=shift, mean=mean, var=var, s1=s1, s2=s2,
-             w=w, pinv=pinv, pshift=pshift), _CONV_TH, _CONV_TW)
-    lib = _build.load("flat_conv_bwd")
+             w=w, pinv=pinv, pshift=pshift), *_FLAT_HW_MULT)
+    lib = _mma_lib("flat_conv_bwd")
     dev = y.device
-    mask = m.reshape(B, HW).to(torch.bfloat16).contiguous()
+    mask = _aligned16(m.reshape(B, HW).to(torch.bfloat16).contiguous())
     vecs = torch.stack([v.float() for v in _bwd_vecs(
         inv, shift, mean, var, s1, s2, nact)]).contiguous()  # (6, C)
     if prev_fold is not None:
         pinv, pshift = pinv.float().contiguous(), pshift.float().contiguous()
-    wt = w.flip(0, 1).permute(0, 1, 3, 2).reshape(9, C, Cin)
-    wt = wt.to(torch.bfloat16).contiguous()
+    wtp = None
+    if need_dx:
+        wt = w.flip(0, 1).permute(0, 1, 3, 2).reshape(9, C, Cin)
+        wtp = _pack_conv_weights(wt.to(torch.bfloat16))
     dy = torch.empty((B, C, HW), dtype=torch.bfloat16, device=dev)
     dh = (torch.empty((B, Cin, HW), dtype=torch.bfloat16, device=dev)
           if need_dx else None)
-    tiles = B * (H // _DW_TR) * (W // _DW_TC)
-    slices = math.ceil(Cin / _DW_CI) * math.ceil(C / _DW_CO)
-    nchunks, per_chunk = _dw_chunks(tiles, slices, 4 * _sms(dev))
+    nchunks, per_chunk = _dw_grid("flat_conv_bwd", dev, B, H, W, Cin, C,
+                                  prev_fold is not None)
     part = torch.empty((nchunks, 9, Cin, C), dtype=torch.float32, device=dev)
     err = lib.cmx_flat_bwd(
         _ptr(g), _ptr(y), _ptr(src), _ptr(mask), _ptr(vecs), _ptr(pinv),
-        _ptr(pshift), _ptr(wt), _ptr(dy), _ptr(dh), _ptr(part),
+        _ptr(pshift), _ptr(wtp), _ptr(dy), _ptr(dh), _ptr(part),
         B, Cin, C, H, W, int(prev_fold is not None), int(need_dx), nchunks,
         per_chunk, _stream(y))
     _build.check(err, "flat_bwd_mega")

@@ -8,10 +8,12 @@ inside the fixture). On a machine with the card:
 Shapes here are small and deliberately ragged (Cin not a multiple of the
 staging chunk, Cout not a multiple of the channel tile) to exercise the
 bounds checks; the main path's full-width shapes are covered by
-chip_smoke.py. The NHWC kernels (K6-K8) take H % 32 == 0 and W % 8 == 0;
-their shapes include W = 40 (8 times an odd number: a column tile that
-overhangs the image), Cin 1, 3, 8, 24, 64 and 128 and Cout 20, 64, 96 and
-128 (the edges of the tensor-core tiles of K7/K8). Tolerances: bf16 outputs rel
+chip_smoke.py. The NHWC kernels (K6-K8) take H % 32 == 0 and W % 8 == 0,
+the flat ones (K1/K2) H % 8 == 0 and W % 8 == 0; both sets of shapes
+include W = 40 and 24 (8 times an odd number: a column tile that overhangs
+the image), Cin 1, 3, 24, 64 and 128 and Cout 20, 64, 96 and 128 (the edges
+of the tensor-core tiles), the flat ones also H = 8 (one row tile).
+Tolerances: bf16 outputs rel
 1e-2 of the largest entry (a one-ulp bf16 rounding flip), fp32 sums rel
 1e-3 (summation order); the fp32 crop (K4) rel 1e-5 (its weights equal the
 plain version's op for op; the products sum in another order); K5 in fp32
@@ -56,7 +58,9 @@ def _inputs(dev, B, H, W, cin, C, seed=0):
     return g, m, src, w, b, inv, shift
 
 
-SHAPES = [(2, 32, 64, 1, 16), (2, 8, 32, 3, 96), (1, 16, 32, 64, 64)]
+SHAPES = [(2, 32, 64, 1, 16), (2, 8, 32, 3, 96), (1, 16, 32, 64, 64),
+          (2, 32, 40, 1, 64), (1, 8, 40, 3, 20), (2, 16, 24, 24, 96),
+          (1, 8, 24, 128, 128), (1, 16, 40, 64, 20)]
 
 
 @pytest.mark.parametrize("pre", [False, True])
@@ -131,9 +135,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     _, m, src, w, b, _, _ = _inputs(dev, 1, 8, 32, 4, 16)
     with pytest.raises(TypeError):
         ff.flat_conv3x3_mask_stats(src.float(), m, w, b, 8, 32)
-    _, m2, src2, w2, b2, _, _ = _inputs(dev, 1, 8, 24, 4, 16)
-    with pytest.raises(ValueError):
-        ff.flat_conv3x3_mask_stats(src2, m2, w2, b2, 8, 24)
+    for H, W in ((8, 20), (12, 24)):  # W % 8, H % 8
+        _, m2, src2, w2, b2, _, _ = _inputs(dev, 1, H, W, 4, 16)
+        with pytest.raises(ValueError):
+            ff.flat_conv3x3_mask_stats(src2, m2, w2, b2, H, W)
 
 
 @pytest.mark.parametrize("B,H", [(2, 64), (3, 256)])
@@ -313,23 +318,17 @@ def test_bn_relu_mask_kernel_matches_plain(dev, dtype, shape):
     assert _rel(out, ref) <= (1e-6 if dtype == torch.float32 else 1e-2)
 
 
-# Spill bytes each tensor-core kernel may have (ptxas -v): the pre-norm
-# forward keeps its fold registers beside 64 accumulators under the
-# 128-register cap of two blocks an SM (csrc/conv3x3_mma.cuh).
-SPILL_BUDGET = {"cmx::conv3x3_mma_kernel<true,true>": 8}
+# Spill bytes each tensor-core kernel may have (ptxas -v): the forward's 64
+# accumulators sit at the 128-register cap of two blocks an SM
+# (csrc/conv3x3_mma.cuh), where ptxas spills 8 bytes in one instance of each
+# layout.
+SPILL_BUDGET = {"cmx::conv3x3_mma_kernel<true,true>": 8,
+                "cmx::flat_conv3x3_mma_kernel<false,true>": 8}
 
 
-def test_nhwc_kernels_run_on_the_tensor_cores(dev):
-    """K7's conv and K8's dX and dW kernels hold tensor-core instructions
-    (cuobjdump --dump-sass of the built libraries) and spill no more than
-    SPILL_BUDGET (ptxas -v, from the build's log)."""
+def _assert_on_the_tensor_cores(want):
     from cmx_torch.ops import _build
 
-    want = {"nhwc_conv_fwd": ["cmx::conv3x3_mma_kernel<true,true>",
-                              "cmx::conv3x3_mma_kernel<false,true>"],
-            "nhwc_conv_bwd": ["cmx::conv3x3_mma_kernel<false,false>",
-                              "cmx::conv3x3_dw_mma_kernel<true>",
-                              "cmx::conv3x3_dw_mma_kernel<false>"]}
     for lib, kernels in want.items():
         counts = _build.sass_counts(_build.dump_sass(lib))
         for k in kernels:
@@ -341,14 +340,38 @@ def test_nhwc_kernels_run_on_the_tensor_cores(dev):
                 assert max(usage[k][1:]) <= budget, (k, usage[k])
 
 
+def test_nhwc_kernels_run_on_the_tensor_cores(dev):
+    """K7's conv and K8's dX and dW kernels hold tensor-core instructions
+    (cuobjdump --dump-sass of the built libraries) and spill no more than
+    SPILL_BUDGET (ptxas -v, from the build's log)."""
+    _assert_on_the_tensor_cores(
+        {"nhwc_conv_fwd": ["cmx::conv3x3_mma_kernel<true,true>",
+                           "cmx::conv3x3_mma_kernel<false,true>"],
+         "nhwc_conv_bwd": ["cmx::conv3x3_mma_kernel<false,false>",
+                           "cmx::conv3x3_dw_mma_kernel<true>",
+                           "cmx::conv3x3_dw_mma_kernel<false>"]})
+
+
+def test_flat_kernels_run_on_the_tensor_cores(dev):
+    """K1's conv and K2's dX and dW kernels, the channel-major instances,
+    as test_nhwc_kernels_run_on_the_tensor_cores."""
+    _assert_on_the_tensor_cores(
+        {"flat_conv_fwd": ["cmx::flat_conv3x3_mma_kernel<true,true>",
+                           "cmx::flat_conv3x3_mma_kernel<false,true>"],
+         "flat_conv_bwd": ["cmx::flat_conv3x3_mma_kernel<false,false>",
+                           "cmx::flat_dw_mma_kernel<true>",
+                           "cmx::flat_dw_mma_kernel<false>"]})
+
+
 def test_nhwc_libraries_report_the_wrappers_tile_geometry(dev):
     import ctypes
 
     from cmx_torch.ops import fused_conv as fc
 
-    for lib in ("nhwc_conv_fwd", "nhwc_conv_bwd"):
+    for lib in ("nhwc_conv_fwd", "nhwc_conv_bwd", "flat_conv_fwd",
+                "flat_conv_bwd"):
         g = (ctypes.c_int * len(fc._MMA_GEOMETRY))()
-        assert fc._mma_lib(lib).cmx_nhwc_mma_geometry(g) == 0
+        assert fc._mma_lib(lib).cmx_mma_geometry(g) == 0
         assert tuple(g) == fc._MMA_GEOMETRY
 
 
