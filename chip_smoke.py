@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
      each kernel, every kernel's SASS digest (_build.sass_digests: equal
      digests, equal machine code), and the tensor-core instructions
      (HMMA/HGMMA) that cuobjdump --dump-sass finds in K1's and K7's conv and
-     in K2's and K8's dX and dW kernels (fails if one has none).
+     in K2's and K8's dX and dW kernels (fails if one has none); the
+     registers and spills of K4's and K6's kernels by name, and K6's grid
+     (one wave of its resident blocks).
 SparK (task.name=spark, model.fused_conv=True, task.pallas_loss=True, full
 widths, 256^2, bf16, batch 32, LAMB lr 2e-4 wd 0.04 clip 5), as the CLI
 builds it:
@@ -48,8 +50,10 @@ MoCo v2 (PRESETS["moco"] + task.crop_impl=pallas: full widths, 256^2 images,
 queue 65536 x 1024, T 0.07):
   4. one step recorded; its two K4 calls (q and k views) replayed through
      the wrapper, the plain version and the library yardstick (two torch.bmm
-     on precomputed weights); K4's bound from the non-zero taps of the
-     calls' weights (roofline.crop_work);
+     on precomputed weights); K4's bound from the pixels inside the calls'
+     windows and the non-zero taps of their weights (roofline.crop_work),
+     and the widths of the bands the kernel sums over
+     (pallas_crop.crop_bands);
   5. the main path: counters zeroed, MOCO_STEPS steps, each
      synchronize-bounded and checked (finite loss and grad norm, acc1/acc5
      in [0, 1], queue_ptr advanced by B mod K, the key encoder equal to the
@@ -101,6 +105,14 @@ TC_KERNELS = {
 # label -> {"registers", "spill_stores", "spill_loads", "HMMA", "HGMMA"} of
 # the TC_KERNELS, filled by phase 0.
 TC_RESOURCES: dict = {}
+# The CUDA-core kernels behind K4 and K6, by wrapper, as TC_KERNELS.
+CORE_KERNELS = {
+    "crop_resize_pallas": [("crop_resize", "cmx::crop_resize_kernel<false>"),
+                           ("crop_resize", "cmx::crop_resize_kernel<true>")],
+    "conv_stem_stats": [("nhwc_conv_fwd", "cmx::stem_kernel")],
+}
+# label -> {"registers", "spill_stores", "spill_loads"} of the CORE_KERNELS.
+CORE_RESOURCES: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -263,19 +275,34 @@ def bwd_check(out, ref, need_dx):
 
 def tensor_core_phase() -> None:
     """Phase 0's look at the built code: every kernel's SASS digest (equal
-    digests, equal machine code), and for the tensor-core kernels ptxas
+    digests, equal machine code), for the tensor-core kernels ptxas
     registers/spills (from the build's log) and SASS tensor-core
-    instruction counts."""
+    instruction counts, and the registers/spills of K4's and K6's kernels
+    with K6's grid."""
+    import torch
+
     from cmx_torch.ops import _build
+    from cmx_torch.ops import fused_conv as fc
 
     tc_libs = {lib for ks in TC_KERNELS.values() for lib, _ in ks}
     for lib in sorted(_build.build_all()):
         dump = _build.dump_sass(lib)
         print(f"  SASS digests {lib}: {json.dumps(_build.sass_digests(dump))}",
               flush=True)
+        usage = _build.ptxas_usage(_build.build_log(lib))
+        for name, ks in CORE_KERNELS.items():
+            for klib, label in ks:
+                if klib != lib:
+                    continue
+                regs, st, ld = usage.get(label, (None, None, None))
+                CORE_RESOURCES[label] = {"registers": regs,
+                                         "spill_stores": st, "spill_loads": ld}
+                print(f"  {name} kernel {label} in {lib}: registers={regs} "
+                      f"spill stores={st} loads={ld} bytes", flush=True)
+                if regs is None:
+                    fail(f"no ptxas line for {label} in {lib}'s build log")
         if lib not in tc_libs:
             continue
-        usage = _build.ptxas_usage(_build.build_log(lib))
         sass = _build.sass_counts(dump)
         for name, ks in TC_KERNELS.items():
             for klib, label in ks:
@@ -290,6 +317,12 @@ def tensor_core_phase() -> None:
                       flush=True)
                 if not sum(ops.values()):
                     fail(f"{label} has no tensor-core instruction in its SASS")
+    dev = torch.device("cuda", 0)
+    stem = _build.load("nhwc_conv_fwd")
+    wave = fc._resident("nhwc_conv_fwd", "cmx_stem_blocks_per_sm", dev)
+    print(f"  conv_stem_stats grid: {stem.cmx_stem_blocks_per_sm()} resident "
+          f"blocks a multiprocessor x {fc._sms(dev)} = {wave} blocks at most, "
+          f"of {stem.cmx_stem_run()} pixels a staged run", flush=True)
 
 
 def tc_summary(name: str) -> str:
@@ -308,6 +341,7 @@ def kernel_phase(calls, iters: int):
     import torch
     import torch.nn.functional as F
 
+    from cmx_torch.ops import pallas_crop as pc
     from cmx_torch.ops import pallas_ops as po
     from cmx_torch.ops.augment import _resize_weight_mat
     from cmx_torch.utils import roofline as rl
@@ -399,15 +433,27 @@ def kernel_phase(calls, iters: int):
             wyt = _resize_weight_mat(H, out_size, p[:, 0], p[:, 1], method)
             wyt = wyt.transpose(1, 2).contiguous()  # (B, out, H)
             wx = _resize_weight_mat(W, out_size, p[:, 2], p[:, 3], method)
-            crop = (B, H, W, out_size, int((wyt != 0).sum()),
-                    int((wx != 0).sum()))
+            nzy, nzx = wyt != 0, wx != 0  # (B, out, H), (B, W, out)
+            crop = (out_size, nzy.any(1).sum(1).tolist(),
+                    nzx.any(2).sum(1).tolist(), nzy.sum((1, 2)).tolist(),
+                    nzx.sum((1, 2)).tolist())
+            del nzy, nzx
             nbytes, flops = rl.crop_work(*crop)
-            dense = 2.0 * B * out_size * (H * W + out_size * W)
             rows = B * out_size
-            msg += (f"; non-zero taps a weight row: {crop[4] / rows:.2f} of "
-                    f"{H} (y), {crop[5] / rows:.2f} of {W} (x); this design's "
-                    f"dense products: {dense / 1e9:.2f} GFLOP, "
-                    f"{1e3 * dense / rl.PEAK_FP32:.4f} ms at the fp32 peak")
+            read = sum(r * c for r, c in zip(crop[1], crop[2]))
+            bands = [hi - lo + 1 for lo, hi in (
+                pc.crop_bands(H, out_size, p[:, 0], p[:, 1], method),
+                pc.crop_bands(W, out_size, p[:, 2], p[:, 3], method))]
+            msg += (f"; the windows need {read / (B * H * W):.3f} of the "
+                    f"images' pixels (the bound reads those), the kernel's y "
+                    f"pass reads {sum(crop[1]) / (B * H):.3f} (whole rows); "
+                    f"non-zero taps a weight row: {sum(crop[3]) / rows:.2f} of "
+                    f"{H} (y), {sum(crop[4]) / rows:.2f} of {W} (x), the "
+                    f"kernel's products run over them; the bands its row "
+                    f"totals sum over: mean {bands[0].float().mean():.2f} max "
+                    f"{int(bands[0].max())} taps (y), mean "
+                    f"{bands[1].float().mean():.2f} max {int(bands[1].max())} "
+                    f"(x)")
             x = imgs.float().contiguous()
             lib_ms = time_ms(lambda: torch.bmm(torch.bmm(wyt, x), wx), iters)
             lib_what = ("two torch.bmm fp32 on precomputed weights: products "
@@ -512,8 +558,7 @@ def run_steps(state, step, imgs, steps: int, label: str, check=None):
 
 # Device kernels of the port (CUDA kernels in cmx_torch/csrc, Triton kernels
 # in cmx_torch/ops), as the profiler names them.
-PORT_KERNEL_NAMES = ("cmx::", "crop_weights_kernel", "sgemm_batched_kernel",
-                     "spark_loss_kernel", "bn_relu_mask_kernel")
+PORT_KERNEL_NAMES = ("cmx::", "spark_loss_kernel", "bn_relu_mask_kernel")
 
 
 def core_ranges(core) -> dict:
@@ -962,9 +1007,12 @@ def main() -> int:
     print(f"MoCo phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     crops = kern["crop_resize_pallas"]["crops"]
+    crop_px = [sum(r * c for r, c in zip(rows, cols))
+               for _, rows, cols, _, _ in crops]
     print(f"bounds of every TPU kernel's work in one step (SparK batch {BATCH}; "
-          f"flat stages {stages}; K4: the recorded MoCo crops {crops}; K6-K8: "
-          f"the NHWC step's calls {nhwc_calls}):", flush=True)
+          f"flat stages {stages}; K4: the recorded MoCo crops, pixels inside "
+          f"their windows {crop_px}; K6-K8: the NHWC step's calls "
+          f"{nhwc_calls}):", flush=True)
     for r in rl.table(BATCH, stages, crops, nhwc_calls):
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
@@ -985,6 +1033,13 @@ def main() -> int:
         if name == "bn_relu_mask_pallas":
             rows[-1]["path"] = ("none: no caller in cmx or the port; launches "
                                 "are the K5 phase's")
+        if name in CORE_KERNELS:
+            rows[-1]["kernel_resources"] = {
+                label: CORE_RESOURCES.get(label)
+                for _, label in CORE_KERNELS[name]}
+            print(f"{name}: {k['ms']:.4f} ms a step = {k['ms'] / bms:.2f}x "
+                  f"its bound ({bms:.4f} ms, {by}), plain {k['plain_ms']:.4f}"
+                  f", library {k['library_ms']}", flush=True)
         if name in TC_KERNELS:
             rows[-1]["tflop_s"] = k["flops"] / k["ms"] / 1e9
             rows[-1]["tensor_core_kernels"] = {

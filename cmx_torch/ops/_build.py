@@ -50,9 +50,10 @@ _SIGNATURES = {
     "flat_conv_bwd": {"cmx_flat_bwd": "ppppppppppp" + "iiiiiiiii" + "p",
                       "cmx_dw_blocks_per_sm": "i",
                       "cmx_mma_geometry": "p"},
-    "crop_resize": {"cmx_crop_resize": "pppppp" + "iiiii" + "p"},
+    "crop_resize": {"cmx_crop_resize": "ppp" + "iiiii" + "p"},
     "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
                       "cmx_nhwc_stem": "pppppp" + "iii" + "p",
+                      "cmx_stem_blocks_per_sm": "", "cmx_stem_run": "",
                       "cmx_mma_geometry": "p"},
     "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p",
                       "cmx_dw_blocks_per_sm": "i",

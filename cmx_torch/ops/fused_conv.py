@@ -75,7 +75,7 @@ _MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC = 8, 32, 64, 16
 _MMA_DW_TR, _MMA_DW_TC, _MMA_DW_CI, _MMA_DW_CO = 4, 32, 64, 64
 _MMA_GEOMETRY = (_MMA_TH, _MMA_TW, _MMA_BN, _MMA_KC,
                  _MMA_DW_TR, _MMA_DW_TC, _MMA_DW_CI, _MMA_DW_CO)
-_STEM_NT, _STEM_MAX_C = 256, 512
+_STEM_MAX_C = 512
 
 
 def _cdt() -> torch.dtype:
@@ -200,23 +200,29 @@ def _dw_slices(Cin: int, C: int) -> int:
     return 3 * math.ceil(Cin / _MMA_DW_CI) * math.ceil(C / _MMA_DW_CO)
 
 
-_dw_resident: dict = {}
+_resident_per_sm: dict = {}
+
+
+def _resident(name: str, fn: str, dev: torch.device, *args: int) -> int:
+    """One wave of a kernel's blocks on `dev`: library `name`'s occupancy
+    export `fn(*args)` (blocks a multiprocessor, queried once) times the
+    multiprocessors."""
+    key = (name, fn, args)
+    if key not in _resident_per_sm:
+        n = getattr(_build.load(name), fn)(*args)
+        if n < 1:
+            raise RuntimeError(f"cmx_torch: {name}'s {fn} says its kernel "
+                               "cannot be resident on this device")
+        _resident_per_sm[key] = n
+    return _resident_per_sm[key] * _sms(dev)
 
 
 def _dw_grid(name: str, dev: torch.device, B: int, H: int, W: int, Cin: int,
              C: int, pre_h: bool):
     """(nchunks, tiles per chunk) of library `name`'s dW kernel: one wave
-    of the blocks the CUDA runtime can keep resident (cached per library and
-    prologue)."""
-    key = (name, pre_h)
-    if key not in _dw_resident:
-        n = _build.load(name).cmx_dw_blocks_per_sm(int(pre_h))
-        if n < 1:
-            raise RuntimeError(f"cmx_torch: {name}'s dW kernel cannot be "
-                               "resident on this device")
-        _dw_resident[key] = n
+    of the blocks the CUDA runtime can keep resident."""
     return _dw_chunks(_dw_tiles(B, H, W), _dw_slices(Cin, C),
-                      _dw_resident[key] * _sms(dev))
+                      _resident(name, "cmx_dw_blocks_per_sm", dev, int(pre_h)))
 
 
 # ---------------------------------------------------------------------------
@@ -257,9 +263,8 @@ def _stem_cuda(patches, m, w, b):
     mask = m.to(torch.bfloat16).contiguous()
     wk = w.to(torch.bfloat16).contiguous()
     bias = b.float().contiguous()
-    ppb = _STEM_NT // math.ceil(C / 8)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblk = min(math.ceil(P / ppb), 8 * sms)
+    nblk = min(math.ceil(P / lib.cmx_stem_run()),
+               _resident("nhwc_conv_fwd", "cmx_stem_blocks_per_sm", dev))
     y = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev)
     part = torch.empty((nblk, 2, C), dtype=torch.float32, device=dev)
     err = lib.cmx_nhwc_stem(_ptr(patches), _ptr(mask), _ptr(wk), _ptr(bias),

@@ -2,8 +2,8 @@
 
 bound = max(bytes / memory rate, flops / peak rate of the operands' type),
 counting each input read once and each output written once, from the
-shapes (and, for K4, the windows: its work is the non-zero taps of its
-weights). Peaks: NVIDIA H100 SXM data sheet, dense: 3.35 TB/s HBM3,
+shapes (and, for K4, the windows: its work is the pixels inside each
+window and the non-zero taps of its weights). Peaks: NVIDIA H100 SXM data sheet, dense: 3.35 TB/s HBM3,
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32 outside the tensor cores
 (at the full 700 W power limit).
 
@@ -51,20 +51,26 @@ def spark_loss_work(B, H, W, patch=16) -> Tuple[float, float]:
     return 4.0 * (2 * B * H * W + 2 * cells), 10.0 * B * H * W
 
 
-def crop_work(B, H, W, out, taps_y, taps_x) -> Tuple[float, float]:
-    """K4: reads imgs and params, writes the crops (fp32). Its least work is
-    the non-zero taps of the resample weights (a band: 2-3 a row for a
-    linear window, twice that cubic), so it depends on the windows:
-    taps_y / taps_x count the non-zero entries of all B images' wy (out,H)
-    and wx (out,W). Each tap costs about ten flops to evaluate and one FMA
-    per pixel it scales: a wy tap scales a row of W pixels and a wx tap a
-    column of out rows (y first), or a wx tap a column of H pixels and a wy
-    tap a row of out (x first); the cheaper order counts. The dense
-    products K4 runs today, 2*B*out*(H*W + out*W) flops, are its design's
-    work, not the function's."""
-    nbytes = 4.0 * B * (H * W + out * out + 4)
-    fma = min(taps_y * W + taps_x * out, taps_x * H + taps_y * out)
-    return nbytes, 2.0 * fma + 10.0 * (taps_y + taps_x)
+def crop_work(out, rows, cols, taps_y, taps_x) -> Tuple[float, float]:
+    """K4: reads the pixels each image's window needs and its params, writes
+    the crops (fp32). Per image (sequences of length B): `rows` / `cols`
+    count the input rows / columns where some tap of wy (out,H) / wx (out,W)
+    is non-zero, so the image's rows x cols pixels are read (a MoCo window
+    covers 0.2-1.0 of the image); `taps_y` / `taps_x` count the non-zero taps
+    (a band: 2-3 a row for a linear window, twice that cubic). Each tap costs
+    about ten flops to evaluate and one FMA per pixel it scales: a wy tap
+    scales a row of `cols` pixels and a wx tap a column of out rows (y
+    first), or a wx tap a column of `rows` pixels and a wy tap a row of out
+    (x first); the cheaper order counts. K4 sums y first over bands
+    (`pallas_crop.crop_bands`) that hold these taps and a few exact zeros
+    beside them, and its y pass reads whole rows of W, so it reads more
+    than this counts where the window is narrower than the image."""
+    B = len(rows)
+    nbytes = 4.0 * (sum(r * c for r, c in zip(rows, cols)) + B * out * out
+                    + 4 * B)
+    fma = min(sum(ty * c + tx * out for ty, tx, c in zip(taps_y, taps_x, cols)),
+              sum(tx * r + ty * out for ty, tx, r in zip(taps_y, taps_x, rows)))
+    return nbytes, 2.0 * fma + 10.0 * (sum(taps_y) + sum(taps_x))
 
 
 def bn_relu_mask_work(B, H, W, C) -> Tuple[float, float]:
@@ -86,7 +92,7 @@ def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
     step at batch B. K1-K3: the SparK step's flat fused DoubleConv stages,
     `stages` as (H, W, Cin, Cout, input gradient needed), and the loss at the
     first stage's (the input's) size; K4: one MoCo step's crop calls, `crops`
-    as crop_work's arguments (B, H, W, out, taps_y, taps_x); K5 (no caller):
+    as crop_work's arguments (out, rows, cols, taps_y, taps_x); K5 (no caller):
     the epilogue of the first stage; K6-K8: the calls recorded in one SparK
     step with FUSED_IMPL="nhwc", `nhwc` as (wrapper name, (H, W, Cin, Cout))
     (K6 conv_stem_stats, K7 conv3x3_mask_stats, K8 bwd_mega)."""

@@ -9,6 +9,14 @@
   expression; 1.9e-6 in a weight at 48 taps), which the port reproduces
   bit for bit; at these sizes the crop moves by up to 5e-6 of its largest
   entry.
+* K4's banded algorithm replayed in torch (`_band_replay`: the kernel's
+  band, `pallas_crop.crop_bands`, the row totals and both passes summed
+  in ascending order over it) against cmx's interpret-mode kernel and the
+  plain version, rel <= 1e-5, linear and cubic, on PARAMS and on windows
+  drawn over s in [0.05, 8] (bands up to the whole image); every non-zero
+  tap of `_resize_weight_mat` lies inside the band. The kernel sums in
+  FMAs, the replay rounds product and sum apart: the same order, not the
+  same bits.
 * The view pipeline's stages alone and `moco_view_aug_batch` whole (K4 and
   the plain crop), with the draws of cmx's key tree injected into the port
   (`cmx_view_draws`): blur and noise rel <= 1e-5, the whole view rel <= 1e-5
@@ -103,6 +111,91 @@ def test_crop_resize_plain_and_cpu_path_match_pallas(method):
     assert tpc.crop_resize_pallas.launches == n0  # the CPU path launches none
 
 
+def _drawn_params(seed, batch, h, w, out):
+    """(sy, ty, sx, tx) with s log-uniform over [0.05, 8] on each axis and
+    windows that may reach past the image."""
+    rng = np.random.default_rng(seed)
+    s = np.exp(rng.uniform(np.log(0.05), np.log(8.0), size=(batch, 2)))
+    p = np.empty((batch, 4), np.float32)
+    for a, n in ((0, h), (1, w)):
+        start = rng.uniform(-0.3 * n, 0.9 * n, size=batch)  # window start
+        p[:, 2 * a] = s[:, a]
+        p[:, 2 * a + 1] = -start * s[:, a]
+    return p
+
+
+def _band_weights(in_size, out_size, s, t, method):
+    """The kernel's taps: (lo (B,out), weights (B,out,K)) with weights[..., k]
+    the normalized weight of tap lo + k, zero past the band and for rows the
+    kernel zeroes; the row totals summed over the band in ascending order."""
+    lo, hi = tpc.crop_bands(in_size, out_size, s, t, method)
+    inv = 1.0 / s
+    kscale = torch.clamp(inv, min=1.0)[:, None]
+    sample_f = ((torch.arange(out_size, dtype=torch.float32) + 0.5)[None, :]
+                * inv[:, None] - t[:, None] * inv[:, None] - 0.5)
+    n = torch.clamp(hi - lo + 1, min=0)
+    taps = []
+    for k in range(int(n.max())):
+        x = torch.abs(sample_f - (lo + k).float()) / kscale
+        w = (torch.clamp(1.0 - x, min=0.0) if method == "linear"
+             else ta._keys_cubic_kernel(x))
+        taps.append(torch.where(k < n, w, torch.zeros_like(w)))
+    total = torch.zeros_like(sample_f)
+    for w in taps:  # ascending over the band; the zeros past it are exact
+        total = total + w
+    valid = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    keep = valid & (total.abs() > 1000.0 * ta._F32_EPS)
+    den = torch.where(total != 0, total, torch.ones_like(total))
+    w = torch.stack([torch.where(keep, w / den, torch.zeros_like(w))
+                     for w in taps], dim=-1)
+    return lo, w
+
+
+def _band_replay(imgs, params, out_size, method):
+    """K4's two passes over the bands, each sum in ascending tap order."""
+    b, h, w = imgs.shape
+    lo_y, wy = _band_weights(h, out_size, params[:, 0], params[:, 1], method)
+    lo_x, wx = _band_weights(w, out_size, params[:, 2], params[:, 3], method)
+    bi = torch.arange(b)[:, None]
+    tmp = torch.zeros((b, out_size, w))
+    for k in range(wy.shape[-1]):  # tmp[o, x] += wy[o, k] * img[lo_o + k, x]
+        rows = imgs[bi, torch.clamp(lo_y + k, max=h - 1)]  # (B, out, W)
+        tmp = tmp + wy[..., k, None] * rows
+    out = torch.zeros((b, out_size, out_size))
+    for k in range(wx.shape[-1]):  # out[o, ox] += wx[ox, k] * tmp[o, lo + k]
+        cols = torch.gather(tmp, 2, torch.clamp(lo_x + k, max=w - 1)[:, None, :]
+                            .expand(b, out_size, out_size))
+        out = out + wx[:, None, :, k] * cols
+    return out
+
+
+@pytest.mark.parametrize("windows", ["PARAMS", "drawn"])
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_crop_band_replay_matches_pallas_and_plain(method, windows):
+    """The banded algorithm of csrc/crop_resize.cu, replayed on the CPU."""
+    rng = np.random.default_rng(5)
+    imgs = rng.normal(size=(4 if windows == "PARAMS" else 8, 40, 56))
+    imgs = imgs.astype(np.float32)
+    params = (PARAMS if windows == "PARAMS"
+              else _drawn_params(6, imgs.shape[0], 40, 56, 32))
+    it, pt = torch.from_numpy(imgs), torch.from_numpy(params)
+    for in_size, s, t in ((40, pt[:, 0], pt[:, 1]), (56, pt[:, 2], pt[:, 3])):
+        lo, hi = tpc.crop_bands(in_size, 32, s, t, method)
+        bb, i, o = torch.nonzero(ta._resize_weight_mat(in_size, 32, s, t,
+                                                       method), as_tuple=True)
+        assert bool((lo[bb, o] <= i).all() and (i <= hi[bb, o]).all())
+    got = _band_replay(it, pt, 32, method).numpy()
+    ref = np.asarray(cmx_crop(jnp.asarray(imgs), jnp.asarray(params), 32,
+                              method=method, interpret=True))
+    assert _rel(got, ref) <= TOL
+    plain = tpc.crop_resize_plain(it, pt, 32, method).numpy()
+    assert _rel(got, plain) <= TOL
+    if windows == "drawn":  # bands of three of the kernel's 16-tap chunks
+        lo, hi = tpc.crop_bands(40, 32, pt[:, 0], pt[:, 1], method)
+        assert int((hi - lo + 1).max()) > 32  # and rows it zeroes
+        assert np.any(np.all(plain == 0.0, axis=2))
+
+
 def test_crop_resize_refuses_bad_operands():
     imgs = torch.zeros((2, 8, 8))
     with pytest.raises(ValueError):
@@ -115,7 +208,7 @@ def test_crop_resize_refuses_bad_operands():
 def test_crop_weights_are_a_band_at_moco_windows(method, radius):
     """K4's bound (roofline.crop_work) counts the non-zero taps: at MoCo's
     windows each weight row has at most ceil(2 * radius * max(1/s, 1)) + 1
-    of them, a few of the 256 the dense products multiply."""
+    of them, a few of a row's 256."""
     gen = torch.Generator().manual_seed(0)
     p = ta._crop_window_params(gen, 64, 256, 256, 224, ta.MOCO_SCALE,
                                ta.MOCO_RATIO)

@@ -186,6 +186,48 @@ def test_crop_resize_kernel_matches_plain(dev, B, H, W, out, method):
     assert bool((got[0, :3] == 0).all())
 
 
+# K4's banded kernel at windows the MoCo draw does not reach, (sy, ty, sx,
+# tx) for each image: a 10x downscale (bands of ~21 taps linear, ~41 cubic:
+# several 16-tap chunks), an 8x upscale (1-2 taps), a window partly outside
+# the image (rows and columns that must be zero), and a mix.
+CROP_WINDOWS = {
+    "down10": [0.1, 0.0, 0.1, -0.2],
+    "up8": [8.0, -8.0 * 3.25, 8.0, -8.0 * 1.5],
+    "outside": [1.6, 5.0, 0.7, 9.0],
+    "mixed": [0.3, -1.0, 3.0, -40.0],
+}
+
+
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("B,H,W,out", [(4, 256, 256, 224), (4, 40, 40, 64),
+                                       (4, 37, 53, 29), (1, 37, 53, 64)])
+def test_crop_resize_kernel_at_any_window(dev, B, H, W, out, method):
+    """Downscales, upscales, windows outside the image, out > in, odd sizes
+    and B = 1, against the plain version (rel 1e-5)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    imgs = torch.randn((B, H, W), generator=g, device=dev)
+    params = torch.tensor(list(CROP_WINDOWS.values())[:B], device=dev)
+    n0 = pc.crop_resize_pallas.launches
+    got = pc.crop_resize_pallas(imgs, params, out, method)
+    ref = pc.crop_resize_plain(imgs, params, out, method)
+    torch.cuda.synchronize()
+    assert pc.crop_resize_pallas.launches == n0 + 1
+    assert got.shape == ref.shape == (B, out, out)
+    assert _rel(got, ref) <= 1e-5
+    if B > 2:  # the window reaching above the image: exact zero rows
+        assert bool((got[2, :5] == 0).all() and (ref[2, :5] == 0).all())
+
+
+def test_crop_resize_refuses_rows_wider_than_its_shared_memory(dev):
+    """A block keeps a strip's rows of the y pass in shared memory: one row
+    of W fp32 must fit, W <= kMaxW (57344); the C entry refuses a wider
+    image."""
+    w = 57344 + 1
+    params = torch.tensor([[1.0, 0.0, 1.0, 0.0]], device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pc.crop_resize_pallas(torch.zeros((1, 1, w), device=dev), params, 4)
+
+
 def _nhwc_inputs(dev, B, H, W, cin, C, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     m = (torch.rand((B, H, W), generator=g, device=dev) > 0.4)
@@ -208,11 +250,26 @@ NHWC_SHAPES = [(2, 32, 40, 3, 20), (1, 32, 40, 64, 64), (1, 64, 32, 128, 96),
                (1, 32, 32, 64, 128), (2, 32, 64, 128, 128)]
 
 
+# B = 3 at 32 x 40: 3840 pixels, seven and a half of the kernel's 512-pixel
+# staged runs; C 8 and 512, the narrowest and widest it takes.
 @pytest.mark.parametrize("B,H,W,C", [(2, 32, 40, 64), (1, 64, 24, 20),
-                                     (1, 32, 8, 1)])
-def test_stem_kernel_matches_plain(dev, B, H, W, C):
+                                     (1, 32, 8, 1), (3, 32, 40, 64),
+                                     (3, 32, 40, 8), (1, 32, 24, 512)])
+@pytest.mark.parametrize("offset", [False, True])
+def test_stem_kernel_matches_plain(dev, B, H, W, C, offset):
+    """offset: the patches and the mask are views of flat buffers one
+    element in, off every 16-byte boundary (the kernel's element copies)."""
     g, m, src, _, b, _, _ = _nhwc_inputs(dev, B, H, W, 1, C)
     patches = fc.make_patches9(src[..., 0])
+    if offset:
+        flat = torch.empty(patches.numel() + 1, dtype=patches.dtype,
+                           device=dev)
+        flat[1:] = patches.reshape(-1)
+        patches = flat[1:].view(patches.shape)
+        flat = torch.empty(m.numel() + 1, dtype=m.dtype, device=dev)
+        flat[1:] = m.reshape(-1)
+        m = flat[1:].view(m.shape)
+        assert patches.data_ptr() % 16 and m.data_ptr() % 16
     w = torch.randn((9, C), generator=g, device=dev) * 0.3
     n0 = fc.conv_stem_stats.launches
     out = fc.conv_stem_stats(patches, m, w, b)

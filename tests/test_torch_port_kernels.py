@@ -261,7 +261,7 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
     stages = [(256, 256, 1, 64, False), (256, 256, 64, 64, True),
               (128, 128, 64, 128, True), (128, 128, 128, 128, True)]
     taps = 256 * 224 * 3  # 3 non-zero taps a weight row
-    crop = (256, 256, 256, 224, taps, taps)
+    crop = (224, [256] * 256, [256] * 256, [224 * 3] * 256, [224 * 3] * 256)
     nhwc = [("conv_stem_stats", (256, 256, 1, 64)),
             ("conv3x3_mask_stats", (256, 256, 64, 64)),
             ("conv3x3_mask_stats", (128, 128, 64, 128)),
@@ -285,7 +285,11 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
                                    for n, s in nhwc if n == "bwd_mega")
     assert rl.table(32, stages, [crop], nhwc[:2])[6]["launches"] == 1
     # the cheaper order of the two products counts
-    assert rl.crop_work(1, 256, 64, 224, 10, 10)[1] == 2 * 10 * (64 + 224) + 200
+    assert rl.crop_work(224, [256], [64], [10], [10])[1] \
+        == 2 * 10 * (64 + 224) + 200
+    # only the pixels inside a window are read
+    assert rl.crop_work(224, [128, 256], [64, 256], [10] * 2, [10] * 2)[0] \
+        == 4 * (128 * 64 + 256 * 256 + 2 * 224 * 224 + 8)
     b, f = rl.conv3x3_fwd_work(32, 256, 256, 64, 64)
     assert f == 2 * 9 * 64 * 64 * 32 * 256 * 256
     assert rl.bound_ms(b, f, rl.PEAK_BF16) == (

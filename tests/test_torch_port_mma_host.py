@@ -1,6 +1,7 @@
 """Host-side pieces of the tensor-core K7/K8 (cmx_torch/csrc/conv3x3_mma.cuh),
-on the CPU: the weight packing, the tile and split-K arithmetic, and the
-parsers that read nvcc's and cuobjdump's output.
+on the CPU: the weight packing, the tile and split-K arithmetic, the
+parsers that read nvcc's and cuobjdump's output, and the C entry points'
+argument lists against the ctypes signatures of `_build`.
 
 The kernels themselves run only on the card (tests/test_torch_port_cuda.py);
 here their decomposition of the work is replayed in plain torch from the
@@ -218,6 +219,8 @@ def test_sass_digests_compare_instructions_not_addresses():
     ("_ZN3cmx16bn_bwd_dy_kernelILb1EEEvPK13__nv_bfloat16",
      "cmx::bn_bwd_dy_kernel<true>"),
     ("_ZN3cmx11stem_kernelEPK13__nv_bfloat16", "cmx::stem_kernel"),
+    ("_ZN3cmx18crop_resize_kernelILb0EEEvPKfS2_Pfiiiii",
+     "cmx::crop_resize_kernel<false>"),
     ("crop_weights_kernel", "crop_weights_kernel"),
     ("_ZN47_GLOBAL__N__0b13f455_14_crop_resize_cu_118ef53d19crop_weights_"
      "kernelEPKfPfS2_iiiii",
@@ -236,3 +239,21 @@ def test_build_log_reads_the_log_beside_a_library_built_earlier(
     assert _build.ptxas_usage(_build.build_log("built"))[
         "cmx::conv3x3_mma_kernel<true,true>"] == (128, 8, 8)
     assert _build.build_log("bare") == ""
+
+
+@pytest.mark.parametrize("lib", sorted(_build._SIGNATURES))
+def test_c_entry_points_take_the_signatures_ctypes_gives_them(lib):
+    """Every `extern "C"` function of csrc/<lib>.cu and the headers it
+    includes is in `_SIGNATURES`, with a pointer ("p") where the C function
+    takes one and an int ("i") else: a mismatch would pass a cut pointer or
+    a stray argument on the card."""
+    src, todo = "", [f"{lib}.cu"]
+    while todo:  # the source and the headers it includes
+        text = (_build.CSRC / todo.pop()).read_text()
+        src += text
+        todo += re.findall(r'#include "(\w+\.cuh)"', text)
+    found = {}
+    for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        args = [a for a in args.split(",") if a.strip() not in ("", "void")]
+        found[name] = "".join("p" if "*" in a else "i" for a in args)
+    assert found == _build._SIGNATURES[lib]
