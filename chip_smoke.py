@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
      digests, equal machine code), and the tensor-core instructions
      (HMMA/HGMMA) that cuobjdump --dump-sass finds in K1's and K7's conv and
      in K2's and K8's dX and dW kernels (fails if one has none); the
-     registers and spills of K4's and K6's kernels by name, and K6's grid
-     (one wave of its resident blocks).
+     registers and spills of K3's (forward and backward), K4's and K6's
+     kernels by name, and K6's grid (one wave of its resident blocks).
 SparK (task.name=spark, model.fused_conv=True, task.pallas_loss=True, full
 widths, 256^2, bf16, batch 32, LAMB lr 2e-4 wd 0.04 clip 5), as the CLI
 builds it:
@@ -20,20 +20,26 @@ builds it:
      its public wrapper and through its plain PyTorch version on the same
      operands: error and tolerance, kernel / plain / library time (CUDA
      events), and the least time the card could take for the same work
-     (bound); K1's and K2's times by call, the stem (Cin = 1) apart;
+     (bound); K1's and K2's times by call, the stem (Cin = 1) apart; K3's
+     forward (the loss to rel 1e-5, and a second launch's bits equal to the
+     first's) and its backward (drec within one ulp of rec's dtype at its
+     largest entry, eight in fp32) with their kernels' registers and
+     spills, each also profiled on the device beside its plain version;
   2. the main path: launch counters zeroed, SPARK_STEPS steps, every
      kernel's count checked against the recorded calls per step (K4 none),
      finite loss and grad norm, step time; a torch.profiler window of two
      steps (device time by kernel, the device's busy share, the port's
      kernels against everything else and each of them, the device time
-     inside the fused DoubleConv's autograd ranges); then the same
+     inside the fused DoubleConv's autograd ranges, and the kernels inside
+     SparkLoss's: K3's two alone, one launch each way); then the same
      step with model.fused_conv=False task.pallas_loss=False (no kernel of
      the port), timed and profiled the same way;
   3. the fused step against the unfused plain-PyTorch model from the same
      weights and draws (loss and BN running stats within bf16 margins).
 The same SparK step with cmx_torch.ops.fused_conv.FUSED_IMPL="nhwc" (the
 NHWC strip kernels K6-K8 in place of K1/K2):
-  A. one step recorded: exactly K6 1, K7 3, K8 3, K3 1 calls, its loss
+  A. one step recorded: exactly K6 1, K7 3, K8 3, K3 1 + 1 backward calls,
+     its loss
      within 1e-3 of the flat step's recorded first step (same weights,
      images and draws); every call replayed as in phase 1, the library
      yardsticks F.conv2d bf16 (K6 on the (B,1,H,W) image, K7 channels_last)
@@ -41,8 +47,9 @@ NHWC strip kernels K6-K8 in place of K1/K2):
   K5. bn_relu_mask_pallas (no caller on any path) driven once on the
      operands of the recorded pre-norm K7 call at down1 (src, inv, shift,
      mask), held to its plain version, timed, library null;
-  B. counters zeroed, SPARK_STEPS steps, launches K6 1, K7 3, K8 3, K3 1
-     a step and K1, K2, K4, K5 none, finite, step time and img/s beside the
+  B. counters zeroed, SPARK_STEPS steps, launches K6 1, K7 3, K8 3, K3 1 +
+     1 backward a step and K1, K2, K4, K5 none, finite, step time and img/s
+     beside the
      flat fused and unfused steps, a two-step profile;
   the NHWC model against the plain model as in phase 3.
 MoCo v2 (PRESETS["moco"] + task.crop_impl=pallas: full widths, 256^2 images,
@@ -63,8 +70,15 @@ queue 65536 x 1024, T 0.07):
      task.crop_impl=scale_translate (no kernel of the port) from the same
      weights, queue, images and draws, checked, timed and profiled the same
      way, its loss equal to the K4 run's step for step (bf16 margin).
+The pretrain CLI (FUSED_IMPL "flat"):
+  CLI. `cmx_torch.cli.pretrain.main` run twice in this process, as a user
+     runs it (`cli_phase`): SparK at full width through K1-K3 on a synthetic
+     corpus read by the native loader into the device feed, with validation,
+     2 epochs, then a call to 3 that resumes; launch counts, log.jsonl, the
+     encoder.npz reloaded bit for bit, the stamp; each epoch's img/s.
 FUSED_IMPL is set back to "flat" after the NHWC phases. Then the K1-K8
-bounds at the recorded shapes, and three lines: the kernels as JSON, the
+bounds at the recorded shapes, and three lines: the kernels as JSON (K3's
+row sums its forward and backward, which it also lists under "parts"), the
 card's name and power limit (nvidia-smi), and {"ok": true, "device": {...}}
 last.
 """
@@ -105,14 +119,33 @@ TC_KERNELS = {
 # label -> {"registers", "spill_stores", "spill_loads", "HMMA", "HGMMA"} of
 # the TC_KERNELS, filled by phase 0.
 TC_RESOURCES: dict = {}
-# The CUDA-core kernels behind K4 and K6, by wrapper, as TC_KERNELS.
+# The CUDA-core kernels behind K3, K4 and K6, by wrapper, as TC_KERNELS
+# (K3: the instances for bf16 rec, the main path's, and fp32 rec, with an
+# fp32 active grid).
 CORE_KERNELS = {
+    "spark_loss_pallas": [
+        ("spark_loss", "cmx::spark_loss_fwd_kernel<__nv_bfloat16,float>"),
+        ("spark_loss", "cmx::spark_loss_fwd_kernel<float,float>")],
+    "spark_loss_bwd": [
+        ("spark_loss", "cmx::spark_loss_bwd_kernel<__nv_bfloat16,float>"),
+        ("spark_loss", "cmx::spark_loss_bwd_kernel<float,float>")],
     "crop_resize_pallas": [("crop_resize", "cmx::crop_resize_kernel<false>"),
                            ("crop_resize", "cmx::crop_resize_kernel<true>")],
     "conv_stem_stats": [("nhwc_conv_fwd", "cmx::stem_kernel")],
 }
 # label -> {"registers", "spill_stores", "spill_loads"} of the CORE_KERNELS.
 CORE_RESOURCES: dict = {}
+
+
+def _k3_bwd_ulps():
+    """K3 backward's tolerance against its plain version, in ulps of rec's
+    dtype at the largest |drec|: one in bf16; eight in fp32 (the main path's
+    rec: the decoder's head returns fp32), where the patch mean and variance,
+    summed in another order, move norm by an ulp or two of its magnitude,
+    more than one ulp of the largest |drec|."""
+    import torch
+
+    return {torch.bfloat16: 1, torch.float32: 8}
 
 
 def fail(msg: str) -> None:
@@ -136,6 +169,28 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls: int = 8) -> tuple:
+    """(device ms a call, device kernels a call) of fn from the profiler
+    over `calls` calls after one warm-up call: each kernel's mean time times
+    its launches a call (its count over `calls`, rounded, so that an event
+    the profiler drops does not move the sum)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ks = [(round(e.count / calls), e.self_device_time_total / e.count)
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    return sum(n * us for n, us in ks) / 1e3, sum(n for n, _ in ks)
+
+
 def rel_err(a, b) -> tuple:
     a, b = a.float(), b.float()
     err = float((a - b).abs().max())
@@ -144,7 +199,9 @@ def rel_err(a, b) -> tuple:
 
 
 def kernels():
-    """wrapper name -> (wrapper, plain version, route, source, TPU kernel)."""
+    """wrapper name -> (wrapper, plain version, route, source, TPU kernel).
+    K3's backward (`spark_loss_bwd`) has an entry of its own for the replay
+    and the launch counts; the kernels line folds it into K3's row."""
     from cmx_torch.ops import fused_conv as fc
     from cmx_torch.ops import fused_conv_flat as ff
     from cmx_torch.ops import pallas_crop as pc
@@ -160,8 +217,14 @@ def kernels():
             "cmx_torch/csrc/flat_conv_bwd.cu",
             "cmx/ops/fused_conv_flat.py:271"),
         "spark_loss_pallas": (
-            po.spark_loss_pallas, po.spark_loss_pallas_plain, "triton",
-            "cmx_torch/ops/pallas_ops.py", "cmx/ops/pallas_ops.py:68"),
+            po.spark_loss_pallas, po.spark_loss_pallas_plain, "cuda",
+            "cmx_torch/csrc/spark_loss.cu", "cmx/ops/pallas_ops.py:68"),
+        "spark_loss_bwd": (
+            po.spark_loss_bwd,
+            lambda rec, imgs, act, g, denom, patch: po.spark_loss_bwd_plain(
+                rec, imgs, act, g, patch),
+            "cuda", "cmx_torch/csrc/spark_loss.cu",
+            "cmx/ops/pallas_ops.py:137"),
         "crop_resize_pallas": (
             pc.crop_resize_pallas, pc.crop_resize_plain, "cuda",
             "cmx_torch/csrc/crop_resize.cu", "cmx/ops/pallas_crop.py:103"),
@@ -459,20 +522,49 @@ def kernel_phase(calls, iters: int):
             lib_what = ("two torch.bmm fp32 on precomputed weights: products "
                         "only, does less work")
             del wyt, wx
-        else:
+        elif name == "spark_loss_pallas":
             rec, imgs, act, patch = args
             B, H, W = imgs.shape
-            el, rl_ = rel_err(out, ref)
-            em, rm = rel_err(po._masked_l2_triton(rec, imgs, act, patch),
-                             po.masked_l2_plain(rec, imgs, act, patch))
-            ok = rl_ <= 1e-4 and rm <= 1e-4
-            err = max(el, em)
-            msg = (f"loss max_abs_err={el:.3e} rel_err={rl_:.3e}, per-patch "
-                   f"map max_abs_err={em:.3e} rel_err={rm:.3e} (tol 1e-4, "
-                   f"sum order)")
-            nbytes, flops = rl.spark_loss_work(B, H, W, patch)
+            err, rc = rel_err(out, ref)
+            again = fn(*args)
+            same = bool(torch.equal(again, out))
+            ok = rc <= 1e-5 and same
+            msg = (f"rec {rec.dtype} act {act.dtype}: loss max_abs_err="
+                   f"{err:.3e} rel_err={rc:.3e} (tol 1e-5, sum order); a "
+                   f"second launch gives the same bits: {same}")
+            nbytes, flops = rl.spark_loss_work(B, H, W, rec.element_size(),
+                                               act.element_size(), patch)
             peak = rl.PEAK_FP32
-        short = name in ("spark_loss_pallas", "bn_relu_mask_pallas")
+        else:  # spark_loss_bwd
+            rec, imgs, act, g, denom, patch = args
+            B, H, W = imgs.shape
+            err = float((out.float() - ref.float()).abs().max())
+            big = float(ref.float().abs().max())
+            ulps = _k3_bwd_ulps()[rec.dtype]
+            tol = ulps * torch.finfo(rec.dtype).eps * big
+            ok = out.dtype == rec.dtype and err <= tol
+            msg = (f"drec {out.dtype}: max_abs_err={err:.3e} = "
+                   f"{err / (torch.finfo(rec.dtype).eps * big):.2f} ulps of "
+                   f"{rec.dtype} at the largest |drec| {big:.3e} (tol "
+                   f"{tol:.3e}: {ulps} ulp(s); the patch statistics sum in "
+                   f"another order than the plain version's)")
+            nbytes, flops = rl.spark_loss_bwd_work(
+                B, H, W, rec.element_size(), act.element_size(), patch)
+            peak = rl.PEAK_FP32
+        if name in ("spark_loss_pallas", "spark_loss_bwd"):
+            (dk, nk), (dp, np_) = (device_ms(lambda: fn(*args)),
+                                   device_ms(lambda: plain(*args)))
+            msg += (f"; on the device (profiler, one call): kernel {dk:.4f} "
+                    f"ms in {nk} launch(es), plain version {dp:.4f} ms in "
+                    f"{np_} launches")
+        if name in CORE_KERNELS:
+            msg += " [" + "; ".join(
+                f"{label}: {r['registers']} regs, spill {r['spill_stores']}/"
+                f"{r['spill_loads']} B" for label, r in (
+                    (lb, CORE_RESOURCES.get(lb, {}))
+                    for _, lb in CORE_KERNELS[name])) + "]"
+        short = name in ("spark_loss_pallas", "spark_loss_bwd",
+                         "bn_relu_mask_pallas")
         n = iters * (4 if short else 1)
         t_k = time_ms(lambda: fn(*args), n)
         t_p = time_ms(lambda: plain(*args), n)
@@ -558,7 +650,7 @@ def run_steps(state, step, imgs, steps: int, label: str, check=None):
 
 # Device kernels of the port (CUDA kernels in cmx_torch/csrc, Triton kernels
 # in cmx_torch/ops), as the profiler names them.
-PORT_KERNEL_NAMES = ("cmx::", "spark_loss_kernel", "bn_relu_mask_kernel")
+PORT_KERNEL_NAMES = ("cmx::", "bn_relu_mask_kernel")
 
 
 def core_ranges(core) -> dict:
@@ -639,6 +731,34 @@ def profile_steps(run_step, n: int, step_ms: float, label: str,
           f"{inside['port']:.3f} and other kernels "
           f"{in_core - inside['port']:.3f}; outside the cores "
           f"{busy_ms - in_core:.3f}", flush=True)
+    loss_tail(prof, n, label)
+
+
+def loss_tail(prof, n: int, label: str) -> None:
+    """The device kernels inside SparkLoss's forward and backward ranges of
+    a profile of n fused SparK steps: fails unless they are K3's two kernels
+    alone, one launch each a step (no eager sum, divide or copy around
+    them)."""
+    from cmx_torch.ops.pallas_ops import SparkLoss
+
+    ranges = core_ranges(SparkLoss)
+    found = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.name in ranges:
+            for k, us in kernels_under(e):
+                found[(ranges[e.name], k)][0] += 1
+                found[(ranges[e.name], k)][1] += us / 1e3 / n
+    print(f"  inside SparkLoss ({label}): " + "; ".join(
+        f"{part} x{c // n} {ms:.4f} device ms/step {k[:60]}"
+        for (part, k), (c, ms) in sorted(found.items())), flush=True)
+    names = {part: [k for (p, k), (c, _) in found.items() if p == part
+                    for _ in range(c // n)] for part in ("forward",
+                                                         "backward")}
+    if not (len(names["forward"]) == len(names["backward"]) == 1
+            and "spark_loss_fwd_kernel" in names["forward"][0]
+            and "spark_loss_bwd_kernel" in names["backward"][0]):
+        fail(f"the {label} step's loss tail ran {dict(names)}, not one K3 "
+             f"launch each way")
 
 
 def step_phase(state, step, imgs, per_step: dict, steps: int, label: str,
@@ -721,10 +841,10 @@ def reference_phase(label: str):
 
 
 SPARK_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega",
-                 "spark_loss_pallas")
+                 "spark_loss_pallas", "spark_loss_bwd")
 FLAT_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega")
 NHWC_PER_STEP = {"conv_stem_stats": 1, "conv3x3_mask_stats": 3,
-                 "bwd_mega": 3, "spark_loss_pallas": 1}
+                 "bwd_mega": 3, "spark_loss_pallas": 1, "spark_loss_bwd": 1}
 NHWC_KERNELS = ("conv_stem_stats", "conv3x3_mask_stats", "bwd_mega")
 MOCO_KERNELS = ("crop_resize_pallas",)
 
@@ -909,6 +1029,134 @@ def moco_phase(batch: int, steps: int, iters: int):
     return kern, launches
 
 
+CLI_EPOCHS = (2, 3)  # the first call's epochs, then the resumed call's
+CLI_IMAGES = 96      # the synthetic corpus (its pretrain split: 66 images)
+CLI_SIZE = 256       # data.image_size
+
+
+class _Tee:
+    """stdout to the real stream and a buffer (the CLI's own lines)."""
+
+    def __init__(self, stream):
+        self.stream, self.lines = stream, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def cli_phase(repo: Path, per_step: dict) -> float:
+    """Phase CLI: `cmx_torch.cli.pretrain.main` in this process, as a user
+    runs it, in a temporary directory under _scratch/: SparK with
+    model.fused_conv=True task.pallas_loss=True at full width, CLI_SIZE^2,
+    bf16, batch BATCH, LAMB as phase 2's step, a synthetic corpus of
+    CLI_IMAGES images (at batch 32: 32 of its pretrain split of 66 for
+    validation with patience 5, 34 for training, 2 steps an epoch),
+    train.save_every_epoch=True; CLI_EPOCHS[0]
+    epochs, then a second call to CLI_EPOCHS[1] epochs that resumes. Fails
+    unless the native loader read the corpus and the device feed ran in
+    both calls, log.jsonl holds epochs 0..CLI_EPOCHS[1]-1 with finite losses
+    and validation losses, each kernel's launches equal phase 2's per-step
+    calls times the training steps (plus, for the forward kernels K1 and K3,
+    the validation forwards), encoder.npz reloads through load_encoder into
+    a fresh SparKModel whose encoder equals the run's final one bit for bit,
+    and the stamp's sha256 is the file's. Returns the phase's seconds."""
+    import contextlib
+    import hashlib
+    import re
+    import tempfile
+
+    import torch
+
+    from cmx_torch.ckpt.checkpoint import load_encoder
+    from cmx_torch.cli.pretrain import main as pretrain_main
+    from cmx_torch.ssl.spark import SparKModel
+
+    t0 = time.perf_counter()
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    fwd_only = ("flat_conv3x3_mask_stats", "spark_loss_pallas")
+    scratch = repo / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        base = ["--task", "spark", "data.synthetic=True",
+                f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={tmp}/data",
+                f"train.ckpt_dir={tmp}/ckpt", "model.fused_conv=True",
+                "task.pallas_loss=True", f"data.image_size={CLI_SIZE}",
+                f"train.batch_size={BATCH}", "optim.name=lamb",
+                "optim.lr=2e-4", "optim.weight_decay=0.04",
+                "optim.clip_norm=5.0", "train.patience=5",
+                "train.save_every_epoch=True"]
+        done, prev_step, results = 0, 0, []
+        for epochs in CLI_EPOCHS:
+            for fn in wrappers.values():
+                fn.launches = 0
+            tee = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                out = pretrain_main(base + [f"train.epochs={epochs}"])
+            torch.cuda.synchronize()
+            ran = epochs - done
+            steps = out["state"].step - prev_step
+            val = out["val_batches"] * ran
+            launches = {n: fn.launches for n, fn in wrappers.items()}
+            expect = {n: per_step.get(n, 0) * (
+                steps + (val if n in fwd_only else 0)) for n in wrappers}
+            rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
+                               "".join(tee.lines))
+            print(f"CLI call to {epochs} epochs: loader {out['loader']}, "
+                  f"device feed {out['device_feed']}, {steps} training steps "
+                  f"and {val} validation batches; epoch "
+                  f"img/s (the CLI's own lines, host clock, the epoch's steps "
+                  f"and its one metrics transfer): "
+                  + ", ".join(f"epoch {e}: {r} img/s in {t} s"
+                              for e, t, r in rates)
+                  + f"; launches {launches} (expected {expect})", flush=True)
+            if out["loader"] != "native" or not out["device_feed"]:
+                fail("the CLI did not load the corpus natively into the "
+                     "device feed")
+            if (launches != expect or not val
+                    or steps != out["steps_per_epoch"] * ran):
+                fail("the CLI's steps did not run each kernel the expected "
+                     "number of times")
+            results.append(out)
+            done, prev_step = epochs, out["state"].step
+        ckpt = results[-1]["ckpt_dir"]
+        with open(Path(ckpt) / "log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        print(f"CLI log.jsonl: epochs {[r['epoch'] for r in log]}, loss "
+              f"{[round(r['loss'], 6) for r in log]}, val_loss "
+              f"{[round(r['val_loss'], 6) for r in log]}", flush=True)
+        if [r["epoch"] for r in log] != list(range(CLI_EPOCHS[-1])) or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+                for r in log):
+            fail("the CLI's log.jsonl lacks an epoch or holds a non-finite "
+                 "loss")
+        state = results[-1]["state"]
+        fresh = SparKModel(dtype=torch.bfloat16, fused=True).to("cuda")
+        load_encoder(results[-1]["encoder"], fresh)
+        final = state.model.encoder.state_dict()
+        same = all(torch.equal(t, final[n])
+                   for n, t in fresh.encoder.state_dict().items())
+        stamp = json.loads(Path(results[-1]["stamp"]).read_text())
+        digest = hashlib.sha256(
+            Path(results[-1]["encoder"]).read_bytes()).hexdigest()
+        print(f"CLI export: encoder.npz reloaded into a fresh SparKModel: "
+              f"encoder equal bit for bit {same}; stamp sha256 matches "
+              f"{stamp['encoder_sha256'] == digest}; final step "
+              f"{stamp['final_step']}, epochs_run {stamp['epochs_run']}",
+              flush=True)
+        if not same or stamp["encoder_sha256"] != digest:
+            fail("the CLI's encoder.npz does not reload to the run's encoder")
+        del state, results, fresh
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"CLI phase took {secs:.1f} s (corpus generation, both calls, "
+          f"exports and checks)", flush=True)
+    return secs
+
+
 def main() -> int:
     import torch
 
@@ -1006,6 +1254,8 @@ def main() -> int:
     kern.update(moco_kern)
     print(f"MoCo phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    cli_phase(repo, per_step)
+
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))
                for _, rows, cols, _, _ in crops]
@@ -1022,21 +1272,49 @@ def main() -> int:
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
     rows = []
-    for name, (_, _, route, source, replaces) in kernels().items():
-        k = kern[name]
+    entries = kernels()
+    for name, (_, _, route, source, replaces) in entries.items():
+        if name == "spark_loss_bwd":
+            continue  # folded into K3's row below
+        k, n = kern[name], launches[name]
+        resources = CORE_KERNELS.get(name, [])
+        parts = None
+        if name == "spark_loss_pallas":
+            kb = kern["spark_loss_bwd"]
+            parts = {}
+            for part, kk, nn, rep in (
+                    ("forward", k, n, replaces),
+                    ("backward", kb, launches["spark_loss_bwd"],
+                     entries["spark_loss_bwd"][4])):
+                pms, pby = rl.bound_ms(kk["nbytes"], kk["flops"], kk["peak"])
+                parts[part] = {"replaces": rep, "launches": nn,
+                               "max_abs_err": kk["max_abs_err"],
+                               "ms": kk["ms"], "plain_ms": kk["plain_ms"],
+                               "bound_ms": pms, "bound_by": pby,
+                               "library_ms": None}
+                print(f"spark_loss {part}: {kk['ms']:.4f} ms a step = "
+                      f"{kk['ms'] / pms:.2f}x its bound ({pms:.4f} ms, "
+                      f"{pby}), plain {kk['plain_ms']:.4f}, library none",
+                      flush=True)
+            k = {**k, **{f: k[f] + kb[f]
+                         for f in ("ms", "plain_ms", "nbytes", "flops")},
+                 "max_abs_err": max(k["max_abs_err"], kb["max_abs_err"])}
+            n += launches["spark_loss_bwd"]
+            resources = resources + CORE_KERNELS["spark_loss_bwd"]
         bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
         rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": k["library_ms"]})
+        if parts:
+            rows[-1]["parts"] = parts
         if name == "bn_relu_mask_pallas":
             rows[-1]["path"] = ("none: no caller in cmx or the port; launches "
                                 "are the K5 phase's")
-        if name in CORE_KERNELS:
+        if resources:
             rows[-1]["kernel_resources"] = {
-                label: CORE_RESOURCES.get(label)
-                for _, label in CORE_KERNELS[name]}
+                label: CORE_RESOURCES.get(label) for _, label in resources}
             print(f"{name}: {k['ms']:.4f} ms a step = {k['ms'] / bms:.2f}x "
                   f"its bound ({bms:.4f} ms, {by}), plain {k['plain_ms']:.4f}"
                   f", library {k['library_ms']}", flush=True)

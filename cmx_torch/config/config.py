@@ -1,7 +1,7 @@
 """The single config system (replaces the reference's five).
 
-A copy of the dataclasses and `apply_overrides` of cmx/config/config.py,
-kept field for field so the port is configured exactly as the cmx CLI is
+A copy of the dataclasses, `apply_overrides`, `to_dict` and `display` of
+cmx/config/config.py, kept field for field so the port is configured exactly as the cmx CLI is
 (the port imports nothing of `cmx`).
 
 Reference config surfaces unified here (SURVEY §5 "Config / flag system"):
@@ -19,6 +19,7 @@ round-trip for logging/checkpoint metadata.
 from __future__ import annotations
 
 import ast
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -205,3 +206,22 @@ def apply_overrides(cfg: Any, overrides: Sequence[str]) -> Any:
             raise KeyError(f"unknown config path {path!r} (at {leaf!r})")
         setattr(obj, leaf, _parse_value(raw.strip()))
     return cfg
+
+
+def to_dict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def display(cfg: Any) -> str:
+    """Pretty multi-line dump (the reference config.display(),
+    Transformation_based/config.py:50-56)."""
+    lines = []
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            lines.append(f"[{f.name}]")
+            for g in dataclasses.fields(v):
+                lines.append(f"  {g.name} = {getattr(v, g.name)!r}")
+        else:
+            lines.append(f"{f.name} = {v!r}")
+    return "\n".join(lines)

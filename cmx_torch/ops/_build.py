@@ -51,6 +51,8 @@ _SIGNATURES = {
                       "cmx_dw_blocks_per_sm": "i",
                       "cmx_mma_geometry": "p"},
     "crop_resize": {"cmx_crop_resize": "ppp" + "iiiii" + "p"},
+    "spark_loss": {"cmx_spark_loss_fwd": "ppppppp" + "iiiii" + "p",
+                   "cmx_spark_loss_bwd": "pppppp" + "iiiii" + "p"},
     "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
                       "cmx_nhwc_stem": "pppppp" + "iii" + "p",
                       "cmx_stem_blocks_per_sm": "", "cmx_stem_run": "",
@@ -166,21 +168,42 @@ def record(name: str, *args) -> None:
         recorded.append((name, _copy(args)))
 
 
+def _template_args(s: str) -> Optional[List[str]]:
+    """The arguments of an Itanium template-argument list `I...E` at the
+    start of s that holds bools, float or named types; else None."""
+    if not s.startswith("I"):
+        return None
+    args, i = [], 1
+    while i < len(s) and s[i] != "E":
+        m = re.match(r"Lb([01])E|(f)|(\d+)", s[i:])
+        if not m:
+            return None
+        i += m.end()
+        if m.group(1):
+            args.append("true" if m.group(1) == "1" else "false")
+        elif m.group(2):
+            args.append("float")
+        else:
+            n = int(m.group(3))
+            args.append(s[i:i + n])
+            i += n
+    return args if i < len(s) else None
+
+
 def kernel_label(mangled: str) -> str:
     """`cmx::name<true,false>` for an Itanium-mangled kernel of namespace
-    cmx with bool template arguments (the port's kernels); else the name
-    with the per-build hash of an anonymous namespace dropped, so that two
-    builds of one source give the same labels."""
+    cmx whose template arguments are bools, float or named types (the
+    port's kernels, e.g. `cmx::spark_loss_fwd_kernel<__nv_bfloat16,float>`);
+    else the name with the per-build hash of an anonymous namespace dropped,
+    so that two builds of one source give the same labels."""
     m = re.match(r"_ZN3cmx(\d+)", mangled)
     if not m:
         return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", mangled)
     end = m.end() + int(m.group(1))
     label = "cmx::" + mangled[m.end():end]
-    targs = re.match(r"I((?:Lb[01]E)+)E", mangled[end:])
+    targs = _template_args(mangled[end:])
     if targs:
-        bools = re.findall(r"Lb([01])E", targs.group(1))
-        label += "<" + ",".join("true" if b == "1" else "false"
-                                for b in bools) + ">"
+        label += "<" + ",".join(targs) + ">"
     return label
 
 

@@ -22,11 +22,15 @@ lr and wd may be callables of the optimizer's step count (optax's
 inject_hyperparams). The update is computed out of place and committed with
 torch.where(finite, new, old), so a non-finite step keeps parameters and
 optimizer state (count included) without a host synchronisation.
+`state_dict()` / `load_state_dict()` carry the state (Lamb: count, mu, nu;
+Sgd: count, trace) across a checkpoint, so a resumed run continues the same
+optimizer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -43,6 +47,24 @@ def no_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> List[bool
 def global_grad_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient entry (optax.global_norm)."""
     return torch.sqrt(torch.stack([g.float().square().sum() for g in grads]).sum())
+
+
+@torch.no_grad()
+def _load_state(own: Dict[str, Any], state: Dict[str, Any]) -> None:
+    """Copy `state`'s tensors into the optimizer's own, in place (they keep
+    their devices); the keys, lengths and shapes must agree."""
+    if set(state) != set(own):
+        raise KeyError(f"optimizer state has {sorted(state)}, expected "
+                       f"{sorted(own)}")
+    for key, dst in own.items():
+        src = state[key]
+        pairs = (list(zip(dst, src)) if isinstance(dst, list)
+                 and len(dst) == len(src) else [(dst, src)])
+        for d, t in pairs:
+            if not isinstance(d, torch.Tensor) or d.shape != t.shape:
+                raise ValueError(f"optimizer state {key!r} does not match "
+                                 f"this optimizer's parameters")
+            d.copy_(t)
 
 
 def _value(v: ScalarOrSchedule, count: torch.Tensor):
@@ -77,6 +99,12 @@ class Lamb:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _load_state(self.state_dict(), state)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
@@ -128,6 +156,12 @@ class Sgd:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.trace = [torch.zeros_like(p, dtype=torch.float32)
                       for p in self.params]
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "trace": list(self.trace)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        _load_state(self.state_dict(), state)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],

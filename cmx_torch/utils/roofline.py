@@ -44,11 +44,24 @@ def conv3x3_bwd_work(B, H, W, Cin, C, need_dx=True) -> Tuple[float, float]:
     return nbytes, 2.0 * 9 * Cin * C * B * H * W * (2 if need_dx else 1)
 
 
-def spark_loss_work(B, H, W, patch=16) -> Tuple[float, float]:
-    """K3: reads rec and imgs (fp32) and the active grid, writes the map;
-    about ten flops a pixel."""
+def spark_loss_work(B, H, W, rec_bytes, act_bytes=4, patch=16
+                    ) -> Tuple[float, float]:
+    """K3 forward: reads rec (rec_bytes a pixel: 4 on the main path, whose
+    decoder returns fp32; 2 in bf16), imgs (fp32) and the active grid
+    (act_bytes a cell), writes the loss and the denominator; about ten flops
+    a pixel."""
     cells = B * (H // patch) * (W // patch)
-    return 4.0 * (2 * B * H * W + 2 * cells), 10.0 * B * H * W
+    return (float(B * H * W * (rec_bytes + 4) + act_bytes * cells + 8),
+            10.0 * B * H * W)
+
+
+def spark_loss_bwd_work(B, H, W, rec_bytes, act_bytes=4, patch=16
+                        ) -> Tuple[float, float]:
+    """K3 backward: reads rec, imgs, the active grid, the cotangent and the
+    denominator, writes drec in rec's dtype; about ten flops a pixel."""
+    cells = B * (H // patch) * (W // patch)
+    return (float(B * H * W * (2 * rec_bytes + 4) + act_bytes * cells + 8),
+            10.0 * B * H * W)
 
 
 def crop_work(out, rows, cols, taps_y, taps_x) -> Tuple[float, float]:
@@ -90,8 +103,9 @@ def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
           nhwc: List[Tuple[str, Tuple[int, int, int, int]]]) -> List[dict]:
     """One row per TPU kernel: the bound of all its launches' work in one
     step at batch B. K1-K3: the SparK step's flat fused DoubleConv stages,
-    `stages` as (H, W, Cin, Cout, input gradient needed), and the loss at the
-    first stage's (the input's) size; K4: one MoCo step's crop calls, `crops`
+    `stages` as (H, W, Cin, Cout, input gradient needed), and the loss's
+    forward and backward at the first stage's (the input's) size, rec fp32
+    (the decoder's head returns fp32); K4: one MoCo step's crop calls, `crops`
     as crop_work's arguments (out, rows, cols, taps_y, taps_x); K5 (no caller):
     the epilogue of the first stage; K6-K8: the calls recorded in one SparK
     step with FUSED_IMPL="nhwc", `nhwc` as (wrapper name, (H, W, Cin, Cout))
@@ -106,7 +120,9 @@ def table(B: int, stages: List[Tuple[int, int, int, int, bool]],
     rows = [
         ("K1", "flat_conv3x3_mask_stats", fwd, PEAK_BF16),
         ("K2", "flat_bwd_mega", bwd, PEAK_BF16),
-        ("K3", "spark_loss_pallas", [spark_loss_work(B, h0, w0)], PEAK_FP32),
+        ("K3", "spark_loss_pallas", [spark_loss_work(B, h0, w0, 4),
+                                      spark_loss_bwd_work(B, h0, w0, 4)],
+         PEAK_FP32),
         ("K4", "crop_resize_pallas", [crop_work(*c) for c in crops],
          PEAK_FP32),
         ("K5", "bn_relu_mask_pallas", [bn_relu_mask_work(B, h0, w0, c0)],

@@ -18,7 +18,9 @@ Tolerances: bf16 outputs rel
 1e-3 (summation order); the fp32 crop (K4) rel 1e-5 (its weights equal the
 plain version's op for op; the products sum in another order); K5 in fp32
 rel 1e-6 (Triton fuses x*scale+bias into one FMA, the plain version rounds
-twice).
+twice); K3's forward loss rel 1e-5 and its backward one ulp of rec's dtype
+at the largest |drec| in bf16, eight in fp32: the patch sums and the
+cross-block sum run in another order than the plain version's.
 """
 
 import numpy as np
@@ -141,21 +143,72 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             ff.flat_conv3x3_mask_stats(src2, m2, w2, b2, H, W)
 
 
-@pytest.mark.parametrize("B,H", [(2, 64), (3, 256)])
-def test_spark_loss_kernel_matches_plain(dev, B, H):
-    g = torch.Generator(device=dev).manual_seed(2)
+def _loss_inputs(dev, B, H, grid, rec_dtype, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
     imgs = torch.randn((B, H, H), generator=g, device=dev) * 2 + 0.5
-    rec = torch.randn((B, H, H), generator=g, device=dev)
-    act = (torch.rand((B, H // 16, H // 16), generator=g, device=dev) > 0.6)
-    act = act.float()
-    n0 = po.spark_loss_pallas.launches
-    out = po._masked_l2_triton(rec, imgs, act, 16)
-    ref = po.masked_l2_plain(rec, imgs, act, 16)
-    assert _rel(out, ref) <= 1e-4
-    loss = po.spark_loss_pallas(rec, imgs, act)
-    ref_loss = po.spark_loss_pallas_plain(rec, imgs, act)
-    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
-    assert po.spark_loss_pallas.launches == n0 + 2
+    rec = torch.randn((B, H, H), generator=g, device=dev).to(rec_dtype)
+    f = H // 16
+    if grid == "random":
+        act = (torch.rand((B, f, f), generator=g, device=dev) > 0.6).float()
+    else:  # every patch visible (the denominator is 1e-8) or every masked
+        act = torch.full((B, f, f), float(grid == "visible"), device=dev)
+    return rec, imgs, act
+
+
+@pytest.mark.parametrize("grid", ["random", "visible", "masked"])
+@pytest.mark.parametrize("rec_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H", [(1, 256), (3, 256), (32, 256), (1, 512),
+                                 (3, 512), (32, 512)])
+def test_spark_loss_kernels_match_plain(dev, B, H, rec_dtype, grid):
+    """K3's forward to rel 1e-5 (sum order) and its backward to one ulp of
+    rec's dtype at the largest |drec| in bf16, eight in fp32 (the patch sums
+    run in another order), each one launch; g = 0.7 is read on the
+    device."""
+    rec, imgs, act = _loss_inputs(dev, B, H, grid, rec_dtype)
+    n0, nb0 = po.spark_loss_pallas.launches, po.spark_loss_bwd.launches
+    loss, denom = po._spark_loss(rec, imgs, act, 16)
+    ref = po.spark_loss_pallas_plain(rec, imgs, act)
+    g = torch.tensor(0.7, device=dev)
+    drec = po.spark_loss_bwd(rec, imgs, act, g, denom)
+    dref = po.spark_loss_bwd_plain(rec, imgs, act, g)
+    torch.cuda.synchronize()
+    assert po.spark_loss_pallas.launches == n0 + 1
+    assert po.spark_loss_bwd.launches == nb0 + 1
+    assert float(denom) == float((1 - act).sum() + 1e-8)
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
+    assert drec.dtype == rec_dtype and drec.shape == rec.shape
+    ulps = 1 if rec_dtype == torch.bfloat16 else 8
+    tol = ulps * torch.finfo(rec_dtype).eps * float(dref.float().abs().max())
+    assert float((drec.float() - dref.float()).abs().max()) <= tol
+    if grid == "visible":
+        assert float(loss) == 0.0 and not drec.float().abs().max()
+
+
+@pytest.mark.parametrize("rec_dtype", [torch.bfloat16, torch.float32])
+def test_spark_loss_kernels_give_the_same_bits_twice(dev, rec_dtype):
+    """The forward sums its blocks' partials in a fixed order (no float
+    atomics), so two launches on the same inputs agree bit for bit."""
+    rec, imgs, act = _loss_inputs(dev, 32, 256, "random", rec_dtype, seed=4)
+    a, da = po._spark_loss(rec, imgs, act, 16)
+    b, db = po._spark_loss(rec, imgs, act, 16)
+    g = torch.tensor(1.0, device=dev)
+    assert torch.equal(a, b) and torch.equal(da, db)
+    assert torch.equal(po.spark_loss_bwd(rec, imgs, act, g, da),
+                       po.spark_loss_bwd(rec, imgs, act, g, db))
+
+
+def test_spark_loss_autograd_runs_one_launch_each_way(dev):
+    rec, imgs, act = _loss_inputs(dev, 3, 256, "random", torch.bfloat16)
+    rec.requires_grad_(True)
+    n0, nb0 = po.spark_loss_pallas.launches, po.spark_loss_bwd.launches
+    loss = po.spark_loss_pallas_trainable(rec, imgs, act, 16)
+    loss.backward()
+    assert (po.spark_loss_pallas.launches, po.spark_loss_bwd.launches) == \
+        (n0 + 1, nb0 + 1)
+    ref = po.spark_loss_bwd_plain(rec.detach(), imgs, act,
+                                  torch.ones((), device=dev))
+    tol = torch.finfo(torch.bfloat16).eps * float(ref.float().abs().max())
+    assert float((rec.grad.float() - ref.float()).abs().max()) <= tol
 
 
 def test_wrappers_refuse_operands_on_another_device(dev):
@@ -165,6 +218,9 @@ def test_wrappers_refuse_operands_on_another_device(dev):
     imgs = torch.zeros((1, 32, 32), device=dev)
     with pytest.raises(ValueError):
         po.spark_loss_pallas(imgs, imgs, torch.zeros((1, 2, 2)))
+    with pytest.raises(ValueError):  # K3 takes 16x16 patches only
+        po.spark_loss_pallas(imgs, imgs, torch.zeros((1, 4, 4), device=dev),
+                             8)
 
 
 @pytest.mark.parametrize("method", ["linear", "cubic"])

@@ -271,7 +271,7 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
     rows = rl.table(32, stages, [crop] * 2, nhwc)
     assert calls == len(rows) == 8
     assert [r["kernel"] for r in rows] == [f"K{i}" for i in range(1, 9)]
-    assert [r["launches"] for r in rows] == [4, 4, 1, 2, 1, 1, 3, 3]
+    assert [r["launches"] for r in rows] == [4, 4, 2, 2, 1, 1, 3, 3]
     assert all(r["bound_ms"] > 0 for r in rows)
     nb, fl = rl.crop_work(*crop)
     assert nb == 4 * 256 * (256 * 256 + 224 * 224 + 4)
@@ -294,5 +294,5 @@ def test_roofline_table_has_a_row_per_pallas_kernel():
     assert f == 2 * 9 * 64 * 64 * 32 * 256 * 256
     assert rl.bound_ms(b, f, rl.PEAK_BF16) == (
         1e3 * max(b / rl.PEAK_BYTES, f / rl.PEAK_BF16), "bytes")
-    assert rl.bound_ms(*rl.spark_loss_work(32, 256, 256), rl.PEAK_FP32)[1] \
+    assert rl.bound_ms(*rl.spark_loss_work(32, 256, 256, 2), rl.PEAK_FP32)[1] \
         == "bytes"

@@ -219,6 +219,8 @@ def test_sass_digests_compare_instructions_not_addresses():
     ("_ZN3cmx16bn_bwd_dy_kernelILb1EEEvPK13__nv_bfloat16",
      "cmx::bn_bwd_dy_kernel<true>"),
     ("_ZN3cmx11stem_kernelEPK13__nv_bfloat16", "cmx::stem_kernel"),
+    ("_ZN3cmx21spark_loss_fwd_kernelI13__nv_bfloat16fEEvPKT_PKfPKT0_PfS8_S8_"
+     "Pjii", "cmx::spark_loss_fwd_kernel<__nv_bfloat16,float>"),
     ("_ZN3cmx18crop_resize_kernelILb0EEEvPKfS2_Pfiiiii",
      "cmx::crop_resize_kernel<false>"),
     ("crop_weights_kernel", "crop_weights_kernel"),
