@@ -75,21 +75,48 @@ The pretrain CLI (FUSED_IMPL "flat"):
      runs it (`cli_phase`): SparK at full width through K1-K3 on a synthetic
      corpus read by the native loader into the device feed, with validation,
      2 epochs, then a call to 3 that resumes; launch counts, log.jsonl, the
-     encoder.npz reloaded bit for bit, the stamp; each epoch's img/s.
-FUSED_IMPL is set back to "flat" after the NHWC phases. Then the K1-K8
-bounds at the recorded shapes, and three lines: the kernels as JSON (K3's
-row sums its forward and backward, which it also lists under "parts"), the
-card's name and power limit (nvidia-smi), and {"ok": true, "device": {...}}
-last.
+     encoder.npz reloaded bit for bit, the stamp; each epoch's img/s. The
+     corpus and the exported encoder.npz stay for FT-CLI.
+The supervised fine-tune (the UNet with model.fused_conv=True, its decoder
+fused as cmx's, FUSED_IMPL "flat": K1/K2 at down1, down2 and up1; the
+Dice+CE loss, the fine-tune augmentation on the device, Adam lr 1e-3, as
+cmx_torch.cli.finetune builds them; full widths, 256^2, bf16, batch 32,
+random images and one-hot masks from a seed):
+  FT1. one step recorded; every K1/K2 call replayed as in phase 1 (up1's
+     128 -> 64 and 64 -> 64 pre-norm stages with dX, and down1/down2 with
+     an all-ones mask: the fine-tune path's new shapes); counters zeroed,
+     SPARK_STEPS steps with launches equal to the recorded calls, finite
+     loss and grad norm, step time and img/s, a two-step profile; then the
+     same step with model.fused_conv=False (no kernel of the port), timed
+     and profiled the same way; the fused model against the plain one from
+     the same weights and draws (loss and BN running stats within phase 3's
+     bf16 margins);
+  FT-NHWC. one step recorded with FUSED_IMPL="nhwc" (K6 1, K7 5, K8 5), its
+     loss within 1e-3 of FT1's recorded step, K7's and K8's up1 calls (Cin
+     128 -> 64 and 64 -> 64, 256^2) replayed against their plain versions;
+     FUSED_IMPL set back to "flat";
+  FT-CLI. `cmx_torch.cli.finetune.main` in this process on the card
+     (`finetune_cli_phase`): the CLI phase's encoder.npz and corpus,
+     data.ratio=0.3 (29 fine-tune images, 20 test), model.fused_conv=True,
+     --lrs 1e-3 --epochs 2 --batches 8: the encoder loaded bit for bit,
+     finite train and valid logs in every fold and the final fit, K1/K2
+     launches equal to FT1's per-step calls times the training steps (the
+     frozen-BN evaluations add none), test_<tag>.json with a finite dice.
+Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
+as JSON (the SparK/MoCo paths' rows, as before; K3's row sums its forward
+and backward, which it also lists under "parts"), the card's name and power
+limit (nvidia-smi), and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -640,7 +667,7 @@ def run_steps(state, step, imgs, steps: int, label: str, check=None):
         metrics = [report(i, m) for i, m in enumerate(metrics)]
     else:
         dt = sum(times[2:]) / (steps - 2) * 1e3
-    B, S = imgs.shape[:2]
+    B, S = (imgs[0] if isinstance(imgs, tuple) else imgs).shape[:2]
     how = "synchronize-bounded steps" if check else "steps back to back"
     print(f"{label}: step_ms={dt:.3f} img_per_s={B / dt * 1e3:.2f} (batch {B}, "
           f"{S}^2, bf16, mean of {steps - 2} {how} after 2 warm-up steps)",
@@ -671,12 +698,12 @@ def kernels_under(event):
 
 
 def profile_steps(run_step, n: int, step_ms: float, label: str,
-                  core=None) -> None:
+                  core=None):
     """Device time by kernel over n steps (torch.profiler / CUPTI), and the
     device's busy share of the step time measured without the profiler.
     With `core`, the fused DoubleConv's autograd Function, also the device
     time inside its forward and backward ranges (fails if either is not in
-    the profile)."""
+    the profile). Returns the profile."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -710,7 +737,7 @@ def profile_steps(run_step, n: int, step_ms: float, label: str,
         print(f"  {ms:9.3f} ms/step x{e.count // n:<4d} {e.key[:100]}",
               flush=True)
     if core is None:
-        return
+        return prof
     ranges = core_ranges(core)
     inside = {"forward": 0.0, "backward": 0.0, "port": 0.0}
     seen = set()
@@ -731,7 +758,7 @@ def profile_steps(run_step, n: int, step_ms: float, label: str,
           f"{inside['port']:.3f} and other kernels "
           f"{in_core - inside['port']:.3f}; outside the cores "
           f"{busy_ms - in_core:.3f}", flush=True)
-    loss_tail(prof, n, label)
+    return prof
 
 
 def loss_tail(prof, n: int, label: str) -> None:
@@ -776,7 +803,9 @@ def step_phase(state, step, imgs, per_step: dict, steps: int, label: str,
     if launches != expect or 0 in [launches[name] for name in per_step]:
         fail(f"the {label} step did not run every kernel the expected number "
              f"of times")
-    profile_steps(lambda: step(state, imgs), 2, step_ms, label, core)
+    prof = profile_steps(lambda: step(state, imgs), 2, step_ms, label, core)
+    if "spark_loss_pallas" in per_step:
+        loss_tail(prof, 2, label)
     return launches, step_ms
 
 
@@ -1048,9 +1077,9 @@ class _Tee:
         self.stream.flush()
 
 
-def cli_phase(repo: Path, per_step: dict) -> float:
+def cli_phase(work: Path, per_step: dict):
     """Phase CLI: `cmx_torch.cli.pretrain.main` in this process, as a user
-    runs it, in a temporary directory under _scratch/: SparK with
+    runs it, in the directory `work`: SparK with
     model.fused_conv=True task.pallas_loss=True at full width, CLI_SIZE^2,
     bf16, batch BATCH, LAMB as phase 2's step, a synthetic corpus of
     CLI_IMAGES images (at batch 32: 32 of its pretrain split of 66 for
@@ -1063,11 +1092,11 @@ def cli_phase(repo: Path, per_step: dict) -> float:
     calls times the training steps (plus, for the forward kernels K1 and K3,
     the validation forwards), encoder.npz reloads through load_encoder into
     a fresh SparKModel whose encoder equals the run's final one bit for bit,
-    and the stamp's sha256 is the file's. Returns the phase's seconds."""
+    and the stamp's sha256 is the file's. Returns (the phase's seconds, the
+    exported encoder.npz, the corpus directory); both stay in `work`."""
     import contextlib
     import hashlib
     import re
-    import tempfile
 
     import torch
 
@@ -1078,82 +1107,297 @@ def cli_phase(repo: Path, per_step: dict) -> float:
     t0 = time.perf_counter()
     wrappers = {name: k[0] for name, k in kernels().items()}
     fwd_only = ("flat_conv3x3_mask_stats", "spark_loss_pallas")
-    scratch = repo / "_scratch"
-    scratch.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        base = ["--task", "spark", "data.synthetic=True",
-                f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={tmp}/data",
-                f"train.ckpt_dir={tmp}/ckpt", "model.fused_conv=True",
-                "task.pallas_loss=True", f"data.image_size={CLI_SIZE}",
-                f"train.batch_size={BATCH}", "optim.name=lamb",
-                "optim.lr=2e-4", "optim.weight_decay=0.04",
-                "optim.clip_norm=5.0", "train.patience=5",
-                "train.save_every_epoch=True"]
-        done, prev_step, results = 0, 0, []
-        for epochs in CLI_EPOCHS:
-            for fn in wrappers.values():
-                fn.launches = 0
-            tee = _Tee(sys.stdout)
-            with contextlib.redirect_stdout(tee):
-                out = pretrain_main(base + [f"train.epochs={epochs}"])
-            torch.cuda.synchronize()
-            ran = epochs - done
-            steps = out["state"].step - prev_step
-            val = out["val_batches"] * ran
-            launches = {n: fn.launches for n, fn in wrappers.items()}
-            expect = {n: per_step.get(n, 0) * (
-                steps + (val if n in fwd_only else 0)) for n in wrappers}
-            rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
-                               "".join(tee.lines))
-            print(f"CLI call to {epochs} epochs: loader {out['loader']}, "
-                  f"device feed {out['device_feed']}, {steps} training steps "
-                  f"and {val} validation batches; epoch "
-                  f"img/s (the CLI's own lines, host clock, the epoch's steps "
-                  f"and its one metrics transfer): "
-                  + ", ".join(f"epoch {e}: {r} img/s in {t} s"
-                              for e, t, r in rates)
-                  + f"; launches {launches} (expected {expect})", flush=True)
-            if out["loader"] != "native" or not out["device_feed"]:
-                fail("the CLI did not load the corpus natively into the "
-                     "device feed")
-            if (launches != expect or not val
-                    or steps != out["steps_per_epoch"] * ran):
-                fail("the CLI's steps did not run each kernel the expected "
-                     "number of times")
-            results.append(out)
-            done, prev_step = epochs, out["state"].step
-        ckpt = results[-1]["ckpt_dir"]
-        with open(Path(ckpt) / "log.jsonl") as f:
-            log = [json.loads(line) for line in f]
-        print(f"CLI log.jsonl: epochs {[r['epoch'] for r in log]}, loss "
-              f"{[round(r['loss'], 6) for r in log]}, val_loss "
-              f"{[round(r['val_loss'], 6) for r in log]}", flush=True)
-        if [r["epoch"] for r in log] != list(range(CLI_EPOCHS[-1])) or not all(
-                math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
-                for r in log):
-            fail("the CLI's log.jsonl lacks an epoch or holds a non-finite "
-                 "loss")
-        state = results[-1]["state"]
-        fresh = SparKModel(dtype=torch.bfloat16, fused=True).to("cuda")
-        load_encoder(results[-1]["encoder"], fresh)
-        final = state.model.encoder.state_dict()
-        same = all(torch.equal(t, final[n])
-                   for n, t in fresh.encoder.state_dict().items())
-        stamp = json.loads(Path(results[-1]["stamp"]).read_text())
-        digest = hashlib.sha256(
-            Path(results[-1]["encoder"]).read_bytes()).hexdigest()
-        print(f"CLI export: encoder.npz reloaded into a fresh SparKModel: "
-              f"encoder equal bit for bit {same}; stamp sha256 matches "
-              f"{stamp['encoder_sha256'] == digest}; final step "
-              f"{stamp['final_step']}, epochs_run {stamp['epochs_run']}",
-              flush=True)
-        if not same or stamp["encoder_sha256"] != digest:
-            fail("the CLI's encoder.npz does not reload to the run's encoder")
-        del state, results, fresh
+    tmp = str(work)
+    base = ["--task", "spark", "data.synthetic=True",
+            f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={tmp}/data",
+            f"train.ckpt_dir={tmp}/ckpt", "model.fused_conv=True",
+            "task.pallas_loss=True", f"data.image_size={CLI_SIZE}",
+            f"train.batch_size={BATCH}", "optim.name=lamb",
+            "optim.lr=2e-4", "optim.weight_decay=0.04",
+            "optim.clip_norm=5.0", "train.patience=5",
+            "train.save_every_epoch=True"]
+    done, prev_step, results = 0, 0, []
+    for epochs in CLI_EPOCHS:
+        for fn in wrappers.values():
+            fn.launches = 0
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = pretrain_main(base + [f"train.epochs={epochs}"])
+        torch.cuda.synchronize()
+        ran = epochs - done
+        steps = out["state"].step - prev_step
+        val = out["val_batches"] * ran
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        expect = {n: per_step.get(n, 0) * (
+            steps + (val if n in fwd_only else 0)) for n in wrappers}
+        rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
+                           "".join(tee.lines))
+        print(f"CLI call to {epochs} epochs: loader {out['loader']}, "
+              f"device feed {out['device_feed']}, {steps} training steps "
+              f"and {val} validation batches; epoch "
+              f"img/s (the CLI's own lines, host clock, the epoch's steps "
+              f"and its one metrics transfer): "
+              + ", ".join(f"epoch {e}: {r} img/s in {t} s"
+                          for e, t, r in rates)
+              + f"; launches {launches} (expected {expect})", flush=True)
+        if out["loader"] != "native" or not out["device_feed"]:
+            fail("the CLI did not load the corpus natively into the "
+                 "device feed")
+        if (launches != expect or not val
+                or steps != out["steps_per_epoch"] * ran):
+            fail("the CLI's steps did not run each kernel the expected "
+                 "number of times")
+        results.append(out)
+        done, prev_step = epochs, out["state"].step
+    ckpt = results[-1]["ckpt_dir"]
+    with open(Path(ckpt) / "log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    print(f"CLI log.jsonl: epochs {[r['epoch'] for r in log]}, loss "
+          f"{[round(r['loss'], 6) for r in log]}, val_loss "
+          f"{[round(r['val_loss'], 6) for r in log]}", flush=True)
+    if [r["epoch"] for r in log] != list(range(CLI_EPOCHS[-1])) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["val_loss"])
+            for r in log):
+        fail("the CLI's log.jsonl lacks an epoch or holds a non-finite "
+             "loss")
+    state = results[-1]["state"]
+    fresh = SparKModel(dtype=torch.bfloat16, fused=True).to("cuda")
+    load_encoder(results[-1]["encoder"], fresh)
+    final = state.model.encoder.state_dict()
+    same = all(torch.equal(t, final[n])
+               for n, t in fresh.encoder.state_dict().items())
+    stamp = json.loads(Path(results[-1]["stamp"]).read_text())
+    digest = hashlib.sha256(
+        Path(results[-1]["encoder"]).read_bytes()).hexdigest()
+    print(f"CLI export: encoder.npz reloaded into a fresh SparKModel: "
+          f"encoder equal bit for bit {same}; stamp sha256 matches "
+          f"{stamp['encoder_sha256'] == digest}; final step "
+          f"{stamp['final_step']}, epochs_run {stamp['epochs_run']}",
+          flush=True)
+    if not same or stamp["encoder_sha256"] != digest:
+        fail("the CLI's encoder.npz does not reload to the run's encoder")
+    encoder = results[-1]["encoder"]
+    del state, results, fresh
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t0
     print(f"CLI phase took {secs:.1f} s (corpus generation, both calls, "
           f"exports and checks)", flush=True)
+    return secs, encoder, f"{tmp}/data"
+
+
+FT_LR = 1e-3        # FT1's Adam learning rate (one point of the CLI's grid)
+FT_CLI_EPOCHS = 2   # FT-CLI: --epochs
+FT_CLI_BATCH = 8    # FT-CLI: --batches
+FT_CLI_RATIO = 0.3  # FT-CLI: data.ratio (29 fine-tune and 20 test images)
+
+
+def make_ft_step(fused: bool, batch: int):
+    """(state, step, (imgs, masks)): the fine-tune step as
+    cmx_torch.cli.finetune builds it (UNet out_classes 2, bf16, weights from
+    seed 0, the supervised task with augmentation, Adam lr FT_LR) on the
+    card, and a batch of random images and one-hot masks from a seed."""
+    import torch
+
+    from cmx_torch.models.unet import UNet
+    from cmx_torch.train.optim import Adam
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.supervised import make_supervised_task
+    from cmx_torch.train.trainer import make_train_step
+
+    model = UNet(out_classes=2, dtype=torch.bfloat16, fused=fused)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to("cuda")
+    task, _ = make_supervised_task(model, augment=True)
+    tx = Adam(model.named_parameters(), FT_LR)
+    state = TrainState.create(model=model, tx=tx, seed=42)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    imgs = torch.randn((batch, CLI_SIZE, CLI_SIZE), generator=gen,
+                       device="cuda")
+    fg = torch.randn((batch, CLI_SIZE, CLI_SIZE), generator=gen,
+                     device="cuda") > 1.0
+    masks = torch.stack([~fg, fg], dim=1).float()
+    return state, make_train_step(task, tx), (imgs, masks)
+
+
+def up1_calls(calls, fwd: str, bwd: str):
+    """The recorded calls of decoder/up1's DoubleConv: the last two forward
+    calls (up1 runs last) and the first two backward ones (the backward runs
+    in reverse)."""
+    return ([c for c in calls if c[0] == fwd][-2:]
+            + [c for c in calls if c[0] == bwd][:2])
+
+
+def finetune_phase(batch: int, steps: int, iters: int):
+    """Phases FT1 and FT-NHWC (see the module docstring). Returns (the
+    per-step calls of the flat fused step, its step_ms, the unfused step's,
+    the K1/K2 replay sums)."""
+    import torch
+
+    from cmx_torch.ops import fused_conv as fc
+    from cmx_torch.ops import fused_conv_flat as ff
+    from cmx_torch.ops.augment import finetune_draws
+
+    state, step, batch_t = make_ft_step(True, batch)
+    calls, ft_loss = record_step(state, step, batch_t)
+    per_step = collections.Counter(name for name, _ in calls)
+    shapes = [f"{stage_of(a)[2]}->{stage_of(a)[3]} {stage_of(a)[0]}^2 "
+              f"dX={stage_of(a)[4]}" for n, a in calls if n == "flat_bwd_mega"]
+    print(f"FT1 recorded step: kernel calls per step {dict(per_step)} "
+          f"(predicted K1 6, K2 6); loss {ft_loss:.6f}; K2 stages in the "
+          f"order the backward runs them: {shapes}", flush=True)
+    if set(per_step) != set(FLAT_KERNELS):
+        fail(f"the fine-tune step called {sorted(per_step)}, expected "
+             f"{sorted(FLAT_KERNELS)}")
+    C, cin = state.model.decoder.up1.double_conv.conv0.kernel.shape[:2]
+    up1 = up1_calls(calls, *FLAT_KERNELS)
+    if [stage_of(a)[2:] for n, a in up1[2:]] != [(C, C, True),
+                                                 (cin, C, True)]:
+        fail("the fine-tune step did not run decoder/up1 through K1/K2 with "
+             "dX")
+    print("FT1 replay of every K1/K2 call of the recorded step (up1: the "
+          "last two K1 calls and the first two K2 calls):", flush=True)
+    kern = kernel_phase(calls, iters)
+    del calls
+    torch.cuda.empty_cache()
+    launches, step_ms = step_phase(state, step, batch_t, per_step, steps,
+                                   "finetune fused", ff.FlatDoubleConv)
+    del state, step
+    torch.cuda.empty_cache()
+
+    wrappers = [k[0] for k in kernels().values()]
+    before = [fn.launches for fn in wrappers]
+    state, step, _ = make_ft_step(False, batch)
+    plain_ms, _ = run_steps(state, step, batch_t, steps, "finetune unfused")
+    if [fn.launches for fn in wrappers] != before:
+        fail("the unfused fine-tune step launched a kernel of the port")
+    profile_steps(lambda: step(state, batch_t), 2, plain_ms,
+                  "finetune unfused")
+    print(f"finetune fused step_ms={step_ms:.3f} unfused step_ms="
+          f"{plain_ms:.3f} (fused/unfused {step_ms / plain_ms:.3f}; batch "
+          f"{batch}, {CLI_SIZE}^2, bf16, Adam)", flush=True)
+
+    # the fused model against the plain one from the same weights and draws
+    fused, _, _ = make_ft_step(True, 2)
+    plain = state
+    plain.model.load_state_dict(fused.model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    draws = finetune_draws(gen, 2, CLI_SIZE, CLI_SIZE)
+    sub = tuple(t[:2] for t in batch_t)
+    from cmx_torch.train.supervised import make_supervised_task
+
+    losses = {}
+    for name, st in (("fused", fused), ("plain", plain)):
+        task, _ = make_supervised_task(st.model, augment=True)
+        st.model.train()
+        loss, _ = task.loss_fn(st.model, sub, gen, draws)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
+    bs_f = dict(fused.model.named_buffers())
+    d_bs = max(float((b - bs_f[n]).abs().max())
+               for n, b in plain.model.named_buffers())
+    print(f"finetune reference: loss fused={losses['fused']:.6f} plain="
+          f"{losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); BN "
+          f"running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
+    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2
+            and d_bs <= 5e-2):
+        fail("the fused fine-tune model disagrees with the plain one")
+    del fused, plain, state, step
+    torch.cuda.empty_cache()
+
+    fc.FUSED_IMPL = "nhwc"
+    try:
+        state, step, _ = make_ft_step(True, batch)
+        calls, nhwc_loss = record_step(state, step, batch_t)
+    finally:
+        fc.FUSED_IMPL = "flat"
+    nhwc_per_step = collections.Counter(name for name, _ in calls)
+    d = abs(nhwc_loss - ft_loss) / abs(ft_loss)
+    print(f"FT-NHWC recorded step: kernel calls per step "
+          f"{dict(nhwc_per_step)} (predicted K6 1, K7 5, K8 5); loss "
+          f"{nhwc_loss:.6f} against FT1's {ft_loss:.6f}: rel diff {d:.3e} "
+          f"(tol 1e-3)", flush=True)
+    if set(nhwc_per_step) != set(NHWC_KERNELS):
+        fail(f"the NHWC fine-tune step called {sorted(nhwc_per_step)}")
+    if not d <= 1e-3:
+        fail("the NHWC fine-tune step's loss disagrees with the flat one's")
+    up1 = up1_calls(calls, "conv3x3_mask_stats", "bwd_mega")
+    if [nhwc_shape(n, a)[2:] for n, a in up1] != [(cin, C), (C, C), (C, C),
+                                                  (cin, C)]:
+        fail("the NHWC fine-tune step did not run up1 through K7/K8")
+    print("FT-NHWC replay of K7's and K8's up1 calls:", flush=True)
+    kernel_phase(up1, iters)
+    del state, step, calls, up1, batch_t
+    torch.cuda.empty_cache()
+    return dict(per_step), step_ms, plain_ms, kern
+
+
+def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
+                       per_step: dict) -> float:
+    """Phase FT-CLI: `cmx_torch.cli.finetune.main` in this process on the
+    card, as a user runs it, with the CLI phase's encoder.npz and corpus
+    (see the module docstring). Returns the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from cmx_torch.ckpt.checkpoint import to_flax
+    from cmx_torch.cli.finetune import main as finetune_main
+    from cmx_torch.data.splits import KFold
+
+    t0 = time.perf_counter()
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = finetune_main([
+        "--device", "cuda", "--pretrained", encoder, "--lrs", str(FT_LR),
+        "--epochs", str(FT_CLI_EPOCHS), "--batches", str(FT_CLI_BATCH),
+        "--out", str(work / "ft_results"), "data.synthetic=True",
+        f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={data_dir}",
+        f"data.image_size={CLI_SIZE}", f"data.ratio={FT_CLI_RATIO}",
+        "model.fused_conv=True"])
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    n_ft = out["n_finetune"]
+    folds = [len(tr) for tr, _ in KFold(3, random_state=42).split(range(n_ft))]
+    steps = FT_CLI_EPOCHS * sum(-(-n // FT_CLI_BATCH) for n in folds + [n_ft])
+    expect = {n: per_step.get(n, 0) * steps for n in wrappers}
+    enc = to_flax(out["model"])
+    with np.load(encoder) as f:
+        same = all(np.array_equal(
+            functools.reduce(lambda t, k: t[k], k.split("/")[1:],
+                             enc[k.split("/")[0]]["encoder"]), f[k])
+            for k in f.files)
+    logs = [fold[part] for fold in out["grid"][0]["folds"]
+            for part in ("train_logs", "valid_logs")]
+    logs += [out["final"].train_logs, out["final"].valid_logs]
+    finite = all(math.isfinite(v) for lg in logs for vs in lg.values()
+                 for v in vs)
+    saved = json.loads(Path(out["test_path"]).read_text())
+    tag = Path(encoder).parent.name
+    print(f"FT-CLI: {n_ft} fine-tune images (folds train {folds}), "
+          f"{out['n_test']} test images; encoder loaded bit for bit {same}; "
+          f"every fold's and the final fit's logs finite {finite}; "
+          f"{steps} training steps, launches {launches} (expected {expect}, "
+          f"the frozen-BN evaluations add none); tag {out['tag']!r} "
+          f"(expected {tag!r}); test metrics {saved['test_metrics']}",
+          flush=True)
+    if not same:
+        fail("the fine-tune CLI's UNet encoder does not equal encoder.npz")
+    if not finite:
+        fail("the fine-tune CLI logged a non-finite metric")
+    if launches != expect:
+        fail("the fine-tune CLI did not run K1/K2 the expected number of "
+             "times")
+    if (out["tag"] != tag or Path(out["test_path"]).name != f"test_{tag}.json"
+            or not math.isfinite(saved["dice"])):
+        fail("the fine-tune CLI's test json lacks a finite dice under its tag")
+    del out
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"FT-CLI test dice={saved['dice']:.6f} (a smoke value: a "
+          f"synthetic corpus and {FT_CLI_EPOCHS} epochs, not a result); the "
+          f"phase took {secs:.1f} s (grid of 3 folds, the final fit, the "
+          f"host metrics)", flush=True)
     return secs
 
 
@@ -1254,7 +1498,25 @@ def main() -> int:
     kern.update(moco_kern)
     print(f"MoCo phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    cli_phase(repo, per_step)
+    scratch = repo / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as work:
+        _, encoder, data_dir = cli_phase(Path(work), per_step)
+        t0 = time.perf_counter()
+        ft_per_step, ft_ms, ft_plain_ms, ft_kern = finetune_phase(
+            BATCH, SPARK_STEPS, ITERS)
+        for name in FLAT_KERNELS:
+            k = ft_kern[name]
+            bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
+            print(f"FT1 {name}: {ft_per_step[name]} calls a step, "
+                  f"{k['ms']:.4f} ms a step = {k['ms'] / bms:.2f}x its bound "
+                  f"({bms:.4f} ms, {by}), plain {k['plain_ms']:.4f}, library "
+                  f"{k['library_ms']:.4f} ({k['ms'] / k['library_ms']:.2f}x), "
+                  f"max_abs_err {k['max_abs_err']:.3e}; by call (kernel_ms / "
+                  f"library_ms): {show(k['calls'])}", flush=True)
+        print(f"FT1/FT-NHWC phases took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        finetune_cli_phase(Path(work), encoder, data_dir, ft_per_step)
 
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))

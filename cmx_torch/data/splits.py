@@ -8,7 +8,9 @@ has no scikit-learn, so `train_test_split` here repeats its arithmetic for
 a float test_size and lists: n_test = ceil(test_size * n), one
 np.random.RandomState(random_state).permutation(n), test = its first n_test
 entries, train the rest, in permutation order. The splits equal cmx's for
-any file list (tests/test_torch_port_cli.py holds them to it).
+any file list (tests/test_torch_port_cli.py holds them to it). `KFold`
+repeats scikit-learn's KFold(shuffle=True) the same way (the fine-tune
+harness's folds; tests/test_torch_port_finetune.py).
 
 Layout contract (SURVEY §1 L0->L1): dataset/imgs/<key>.npy (float32 2-D,
 intensity-normalized) and dataset/masks/<key>.npy (uint8 {0,1}).
@@ -44,6 +46,37 @@ def train_test_split(*arrays: Sequence, test_size: float,
     for a in arrays:
         out += [[a[i] for i in train], [a[i] for i in test]]
     return out
+
+
+class KFold:
+    """sklearn.model_selection.KFold(n_splits, shuffle=True, random_state),
+    the fine-tune harness's: np.random.RandomState(random_state).shuffle(
+    arange(n)), folds of n // k samples, one more in each of the first
+    n % k; split() yields (train, test) index arrays, both in ascending
+    order."""
+
+    def __init__(self, n_splits: int = 5, random_state: int = 42):
+        if n_splits < 2:
+            raise ValueError(f"n_splits={n_splits} must be at least 2")
+        self.n_splits = n_splits
+        self.random_state = random_state
+
+    def split(self, x: Sequence):
+        n = len(x)
+        if self.n_splits > n:
+            raise ValueError(f"Cannot have number of splits n_splits="
+                             f"{self.n_splits} greater than the number of "
+                             f"samples: n_samples={n}.")
+        order = np.arange(n)
+        np.random.RandomState(self.random_state).shuffle(order)
+        sizes = np.full(self.n_splits, n // self.n_splits, dtype=int)
+        sizes[: n % self.n_splits] += 1
+        start = 0
+        for size in sizes:
+            test = np.zeros(n, dtype=bool)
+            test[order[start:start + size]] = True
+            start += size
+            yield np.flatnonzero(~test), np.flatnonzero(test)
 
 
 def list_corpus(data_dir: str) -> Tuple[List[str], List[str]]:

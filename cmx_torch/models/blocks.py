@@ -224,14 +224,15 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """ConvTranspose 2x2 s2, concat skip, DoubleConv. (cmx's bilinear
-    up-sample mode is not ported yet: ROADMAP, LightDecoder item.)"""
+    """ConvTranspose 2x2 s2, concat skip, DoubleConv; `fused` passes to the
+    DoubleConv, whose gate decides (cmx/models/blocks.py:395-440). (cmx's
+    bilinear up-sample mode is not ported yet: ROADMAP, decoder variants.)"""
 
     def __init__(self, cin: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
         super().__init__()
         self.up = ConvTranspose(cin, features, dtype)
-        self.double_conv = DoubleConv(2 * features, features, dtype)
+        self.double_conv = DoubleConv(2 * features, features, dtype, fused)
 
     def forward(self, x, skip):
         x = self.up(x)

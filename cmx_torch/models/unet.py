@@ -1,10 +1,11 @@
-"""The 5-level UNet encoder and decoder (port of cmx/models/unet.py:46-145,
-182-200).
+"""The 5-level UNet family (port of cmx/models/unet.py).
 
 Channel plan 1 -> 64 -> 128 -> 256 -> 512, bottleneck 1024, mirrored
 decoder with skip concat and a 1x1 head. Inputs are (B,H,W) or (B,1,H,W);
-activations are NCHW; logits come out in fp32. UNetEncoderGAP is MoCo's
-encoder: the encoder and a global average pool to a 1024-d embedding.
+activations are NCHW; logits come out in fp32, NCHW (cmx's are NHWC).
+`UNet` is the fine-tune model (encoder + decoder, `fused` passed to both, as
+in cmx); UNetEncoderGAP is MoCo's encoder: the encoder and a global average
+pool to a 1024-d embedding.
 """
 
 from __future__ import annotations
@@ -65,17 +66,19 @@ class UNetEncoder(nn.Module):
 
 class UNetDecoder(nn.Module):
     """4 UpBlocks (up4 .. up1) with skip concat + 1x1 head; fp32 logits.
-    Unfused, as with cmx's default (its fused-decoder option waits)."""
+    `fused` passes to every UpBlock's DoubleConv, whose gate decides (at
+    256^2 only up1's, Cin 2*64 = 128, passes)."""
 
     def __init__(self, out_classes: int = 2,
                  widths: Sequence[int] = ENCODER_WIDTHS,
                  in_channels: int = BOTTLENECK_WIDTH,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
         super().__init__()
         cin = in_channels
         self.n_levels = len(widths)
         for lvl in range(self.n_levels, 0, -1):
-            self.add_module(f"up{lvl}", UpBlock(cin, widths[lvl - 1], dtype))
+            self.add_module(f"up{lvl}",
+                            UpBlock(cin, widths[lvl - 1], dtype, fused))
             cin = widths[lvl - 1]
         self.head = Conv(widths[0], out_classes, 1, dtype)
 
@@ -83,6 +86,32 @@ class UNetDecoder(nn.Module):
         for lvl in range(self.n_levels, 0, -1):
             x = getattr(self, f"up{lvl}")(x, skips[lvl - 1])
         return self.head(x).float()
+
+
+class UNet(nn.Module):
+    """The segmentation UNet: `encoder` (UNetEncoder) + `decoder`
+    (UNetDecoder), so that to_flax / from_flax give cmx's tree
+    (encoder/down1/..., decoder/up4/up, decoder/head). (B,H,W) or (B,1,H,W)
+    images -> (B, out_classes, H, W) fp32 logits. `fused` passes to both
+    halves, as cmx/models/unet.py:148-179 does."""
+
+    def __init__(self, out_classes: int = 2,
+                 widths: Sequence[int] = ENCODER_WIDTHS,
+                 bottleneck: int = BOTTLENECK_WIDTH,
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+        super().__init__()
+        self.encoder = UNetEncoder(widths, bottleneck, dtype, fused)
+        self.decoder = UNetDecoder(out_classes, widths, bottleneck, dtype,
+                                   fused)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Random weights from `gen` (flax's initializers)."""
+        reset_parameters(self, gen)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h, skips = self.encoder(x, mask)
+        return self.decoder(h, skips)
 
 
 class UNetEncoderGAP(nn.Module):

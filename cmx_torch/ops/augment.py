@@ -1,5 +1,6 @@
-"""SparK and MoCo pretraining augmentation (port of cmx/ops/augment.py:34-137,
-444-449, 686-719, 757-799, 942-947, 986-1054), written over the batch.
+"""SparK and MoCo pretraining augmentation and the supervised fine-tune
+chain (port of cmx/ops/augment.py:34-137, 444-449, 686-719, 757-939,
+942-947, 986-1054), written over the batch.
 
 The crop is torchvision's RandomResizedCrop window (continuous) resampled to
 (out, out) by the separable weight-matrix map of `_resize_weight_mat`:
@@ -15,6 +16,12 @@ nearest rotation as one flat gather over the batch, then the crop (K4
 `crop_resize_pallas` for crop_impl="pallas", the plain weight-matrix map for
 None / "scale_translate"), then a per-sample Gaussian blur, flips and
 max/10 Gaussian noise. Every random draw may be injected (`draws`).
+
+The fine-tune chain (`finetune_train_aug`) is cmx's per-image one, applied
+to every image of the batch with per-image draws (`finetune_draws`):
+Gaussian noise, blur, brightness/contrast, a nearest down-and-up scale, and
+a OneOf over hflip / vflip / rot90 / noise whose geometric branches move the
+image and its one-hot mask together.
 """
 
 from __future__ import annotations
@@ -277,3 +284,132 @@ def moco_view_aug_batch(imgs: torch.Tensor, out_size: int = 224,
     else:
         cropped = resized_crop(rot, params, out_size, crop_method)
     return _moco_view_post_crop(cropped, d)
+
+
+# ------------------------------------------------------------------- fine-tune
+
+FINETUNE_DOWN_LEVELS = 6  # downscale_random's static scale levels
+
+
+def random_brightness_contrast(imgs: torch.Tensor, alpha: torch.Tensor,
+                               beta: torch.Tensor,
+                               apply: torch.Tensor) -> torch.Tensor:
+    """albumentations RandomBrightnessContrast on float images:
+    img * alpha + beta per image where apply[i] (alpha = 1 + contrast)."""
+    out = imgs * alpha[:, None, None] + beta[:, None, None]
+    return torch.where(apply[:, None, None], out, imgs)
+
+
+def _down_up(imgs: torch.Tensor, scale: float) -> torch.Tensor:
+    """Nearest resize of (B, H, W) images down by `scale`, then back up.
+    mode="nearest-exact" (half-pixel centres) is jax.image.resize's
+    "nearest"; torch's "nearest" is another map."""
+    h, w = imgs.shape[1:]
+    lh, lw = max(int(h * scale), 1), max(int(w * scale), 1)
+    small = F.interpolate(imgs[:, None], size=(lh, lw), mode="nearest-exact")
+    return F.interpolate(small, size=(h, w), mode="nearest-exact")[:, 0]
+
+
+def downscale_random(imgs: torch.Tensor, level: torch.Tensor,
+                     apply: torch.Tensor) -> torch.Tensor:
+    """albumentations Downscale(0.5, 1.0) with the scale range quantized to
+    FINETUNE_DOWN_LEVELS levels (cmx's deviation, kept): image i goes down
+    to level[i]'s scale and back where apply[i]; the top level (scale 1) is
+    the identity."""
+    out = imgs
+    for i in range(FINETUNE_DOWN_LEVELS - 1):
+        s = 0.5 + 0.5 * i / (FINETUNE_DOWN_LEVELS - 1)
+        pick = apply & (level == i)
+        out = torch.where(pick[:, None, None], _down_up(imgs, s), out)
+    return out
+
+
+def finetune_draws(gen: Optional[torch.Generator], batch: int, h: int, w: int,
+                   draws: Optional[dict] = None) -> dict:
+    """The random draws of `finetune_train_aug` for a batch, from `gen`,
+    except those given in `draws` (cmx's distributions, per image):
+      noise_apply p 0.1, noise_var U(10, 50), noise (B, H, W) N(0, 1);
+      blur_apply p 0.2, blur_sigma U(0.5, 1);
+      bc_apply p 0.15, alpha 1 + U(-0.2, 0.2), beta U(-0.25, 0.25);
+      down_apply p 0.25, down_level uniform in 0..5;
+      oneof_apply p 0.75, oneof_branch uniform in 0..3 (hflip, vflip,
+      rot90, noise), oneof_var U(10, 50), oneof_noise (B, H, W) N(0, 1)."""
+    d = dict(draws or {})
+    dev = None if gen is None else gen.device
+
+    def u():
+        return torch.rand((batch,), generator=gen, device=dev)
+
+    def normal():
+        return torch.randn((batch, h, w), generator=gen, device=dev)
+
+    def randint(n):
+        return torch.randint(0, n, (batch,), generator=gen, device=dev)
+
+    fill = {
+        "noise_apply": lambda: u() < 0.1,
+        "noise_var": lambda: 10.0 + 40.0 * u(),
+        "noise": normal,
+        "blur_apply": lambda: u() < 0.2,
+        "blur_sigma": lambda: 0.5 + 0.5 * u(),
+        "bc_apply": lambda: u() < 0.15,
+        "alpha": lambda: 1.0 + (0.4 * u() - 0.2),
+        "beta": lambda: 0.5 * u() - 0.25,
+        "down_apply": lambda: u() < 0.25,
+        "down_level": lambda: randint(FINETUNE_DOWN_LEVELS),
+        "oneof_apply": lambda: u() < 0.75,
+        "oneof_branch": lambda: randint(4),
+        "oneof_var": lambda: 10.0 + 40.0 * u(),
+        "oneof_noise": normal,
+    }
+    for name, draw in fill.items():
+        if name not in d:
+            d[name] = draw()
+    return d
+
+
+def _gauss_noise(imgs: torch.Tensor, var: torch.Tensor, noise: torch.Tensor,
+                 apply: torch.Tensor) -> torch.Tensor:
+    """albumentations GaussNoise(var_limit): img + sqrt(var) * N(0, 1),
+    added to the values as they are, where apply[i]."""
+    noisy = imgs + torch.sqrt(var)[:, None, None] * noise
+    return torch.where(apply[:, None, None], noisy, imgs)
+
+
+def finetune_train_aug(imgs: torch.Tensor, masks: torch.Tensor,
+                       gen: Optional[torch.Generator] = None,
+                       draws: Optional[dict] = None):
+    """The supervised fine-tune augmentation (Finetuning/dataset.py:134-163,
+    cmx's finetune_train_aug) of (B, H, W) images and their (B, C, H, W)
+    one-hot masks:
+      GaussNoise(var (10, 50)) p 0.1 -> GaussianBlur(sigma (0.5, 1), radius
+      5) p 0.2 -> RandomBrightnessContrast(0.25, 0.2) p 0.15 ->
+      Downscale(0.5, 1) p 0.25 -> OneOf{HFlip, VFlip, Rotate90,
+      GaussNoise(var (10, 50))} p 0.75.
+    Intensity ops touch the image only; the geometric branches move image
+    and mask together. The draws of `finetune_draws` come from `gen` unless
+    given in `draws`. Returns (imgs fp32, masks)."""
+    b, h, w = imgs.shape
+    dev = imgs.device
+    d = {k: v.to(dev) for k, v in
+         finetune_draws(gen, b, h, w, draws).items()}
+    x = _gauss_noise(imgs.float(), d["noise_var"], d["noise"],
+                     d["noise_apply"])
+    x = gaussian_blur(x, d["blur_sigma"], d["blur_apply"], radius=5)
+    x = random_brightness_contrast(x, d["alpha"], d["beta"], d["bc_apply"])
+    x = downscale_random(x, d["down_level"], d["down_apply"])
+
+    branch = torch.where(d["oneof_apply"], d["oneof_branch"],
+                         torch.full_like(d["oneof_branch"], -1))
+    noisy = _gauss_noise(x, d["oneof_var"], d["oneof_noise"],
+                         torch.ones_like(d["oneof_apply"]))
+    out_x, out_m = x, masks
+    for i, (xi, mi) in enumerate((
+            (x.flip(-1), masks.flip(-1)),
+            (x.flip(-2), masks.flip(-2)),
+            (torch.rot90(x, 1, dims=(1, 2)), torch.rot90(masks, 1, dims=(2, 3))),
+            (noisy, masks))):
+        pick = branch == i
+        out_x = torch.where(pick[:, None, None], xi, out_x)
+        out_m = torch.where(pick[:, None, None, None], mi, out_m)
+    return out_x, out_m

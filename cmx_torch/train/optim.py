@@ -1,8 +1,9 @@
-"""Optimizers (port of cmx/train/optim.py:26-110).
+"""Optimizers (port of cmx/train/optim.py:26-110, and the fine-tune
+harness's Adam, cmx/train/harness.py:102).
 
-LAMB (SparK's optimizer) and SGD (MoCo's) are ported; adamw and lars wait
-(ROADMAP). `Lamb` reproduces cmx's make_optimizer("lamb", ..., clip_norm)
-exactly:
+LAMB (SparK's optimizer), SGD (MoCo's) and Adam (the fine-tune harness's)
+are ported; adamw and lars wait (ROADMAP). `Lamb` reproduces cmx's
+make_optimizer("lamb", ..., clip_norm) exactly:
 
   clip_by_global_norm(clip) ->
   optax.lamb = scale_by_adam(b1, b2, eps=1e-6, eps_root=0, bias-corrected)
@@ -17,6 +18,13 @@ parameter example (the CLI's call):
   clip_by_global_norm(clip) ->
   add_decayed_weights(wd, no_decay_mask) -> optax.sgd(lr, momentum)
       = trace: t <- g + momentum * t (nesterov off) -> scale by -lr
+
+`Adam` reproduces optax.inject_hyperparams(optax.adam)(learning_rate), the
+harness's optimizer, which cmx builds outside make_optimizer:
+
+  scale_by_adam(b1 0.9, b2 0.999, eps 1e-8, eps_root 0, bias-corrected)
+      -> scale by -lr,   every hyperparameter a 0-d fp32 device tensor, as
+                         inject_hyperparams makes them (an Adam per fit)
 
 lr and wd may be callables of the optimizer's step count (optax's
 inject_hyperparams). The update is computed out of place and committed with
@@ -182,6 +190,47 @@ class Sgd:
             p.copy_(torch.where(finite, new_p, pf).to(p.dtype))
             self.trace[i].copy_(torch.where(finite, t, self.trace[i]))
         self.count.copy_(torch.where(finite, self.count + 1, self.count))
+
+
+class Adam:
+    """Adam over `named_params` with optax.adam's b1, b2 and eps and its
+    hyperparameters held as 0-d fp32 tensors on the parameters' device (the
+    harness builds one for each fit, with that fit's learning rate)."""
+
+    def __init__(self, named_params, learning_rate: float = 1e-3):
+        self.params = [p for _, p in named_params]
+        dev = self.params[0].device
+        # inject_hyperparams turns every hyperparameter into an fp32 array,
+        # so optax computes 1 - b2 (and b ** count) in fp32: so does this
+        self.b1, self.b2, self.eps, self.learning_rate = (
+            torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (0.9, 0.999, 1e-8, learning_rate))
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             finite: Optional[torch.Tensor] = None) -> None:
+        """Apply one update in place; with `finite` False (a 0-d bool
+        tensor) parameters and state stay as they were."""
+        count_inc = self.count + 1
+        bc1 = 1 - self.b1 ** count_inc.float()
+        bc2 = 1 - self.b2 ** count_inc.float()
+        if finite is None:
+            finite = torch.ones((), dtype=torch.bool, device=self.count.device)
+        neg_lr = -self.learning_rate
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            g = g.float()
+            mu = (1 - self.b1) * g + self.b1 * self.mu[i]
+            nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[i]
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            pf = p.float()
+            new_p = pf + neg_lr * u
+            p.copy_(torch.where(finite, new_p, pf).to(p.dtype))
+            self.mu[i].copy_(torch.where(finite, mu, self.mu[i]))
+            self.nu[i].copy_(torch.where(finite, nu, self.nu[i]))
+        self.count.copy_(torch.where(finite, count_inc, self.count))
 
 
 def make_optimizer(name: str, learning_rate: ScalarOrSchedule,

@@ -53,15 +53,19 @@ def _extra_buffers(extra: Any) -> List[torch.Tensor]:
 def make_train_step(task: Task, tx) -> Callable:
     """step(state, batch, draws=None) -> metrics; updates `state` in place.
 
-    Metrics: the task's (SparK: `recon`; MoCo: `acc1`, `acc5`), `loss`,
+    Metrics: the task's (SparK: `recon`; MoCo: `acc1`, `acc5`; supervised:
+    `dice_loss`, `cross_entropy_loss`, `iou_loss`), `loss`,
     `grad_norm`, `nonfinite` (0-d device tensors)."""
 
-    def step(state: TrainState, batch: torch.Tensor,
+    def step(state: TrainState, batch: Any,
              draws: Optional[Dict[str, Any]] = None
              ) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
-        gen = state.step_generator(batch.device)
+        # a tensor (SparK, MoCo) or a tuple of tensors (supervised: images,
+        # masks): the step's generator lives on the first one's device
+        lead = batch[0] if isinstance(batch, (tuple, list)) else batch
+        gen = state.step_generator(lead.device)
         buffers = list(model.buffers()) + _extra_buffers(state.extra)
         old_buffers = [b.clone() for b in buffers]
         params = tx.params

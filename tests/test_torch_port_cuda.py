@@ -412,6 +412,80 @@ def test_fused_double_conv_on_card_matches_cpu(dev, cin):
             assert _rel(a, b) <= tol, (i, _rel(a, b))
 
 
+# decoder/up1's two stages in the fused fine-tune UNet at full width: 2 * 64
+# = 128 -> 64 (the concat of the ConvTranspose's output and the skip) and
+# 64 -> 64 with the pre-norm, at 256^2 with an all-ones mask (the decoder
+# runs unmasked) and dX needed in both (up1's input is an activation).
+UP1_STAGES = [(128, 64, False), (64, 64, True)]
+
+
+def _up1_operands(dev, B, H, W, cin, C, nhwc):
+    """(g, all-ones mask, src, w, b, prev fold or None, gy, y, vecs, var)
+    for an up1 stage: flat (B, C, H*W) or NHWC operands."""
+    g = torch.Generator(device=dev).manual_seed(cin + C)
+    bf16 = torch.bfloat16
+    shape = (lambda c: (B, H, W, c)) if nhwc else (lambda c: (B, c, H * W))
+    m = torch.ones((B, H, W) if nhwc else (B, 1, H * W), dtype=bf16,
+                   device=dev)
+    src = torch.randn(shape(cin), generator=g, device=dev).to(bf16)
+    w = torch.randn((3, 3, cin, C), generator=g, device=dev) * 0.1
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    inv = torch.rand((cin,), generator=g, device=dev) + 0.5
+    shift = torch.randn((cin,), generator=g, device=dev) * 0.3
+    gy = torch.randn(shape(C), generator=g, device=dev).to(bf16)
+    y = torch.randn(shape(C), generator=g, device=dev).to(bf16)
+    vec = [torch.randn((C,), generator=g, device=dev) * 0.3 for _ in range(5)]
+    vec[0] = vec[0].abs() + 0.5
+    var = torch.rand((C,), generator=g, device=dev) + 0.5
+    return m, src, w, b, (inv, shift), gy, y, vec, var
+
+
+@pytest.mark.parametrize("cin,C,pre", UP1_STAGES)
+def test_flat_kernels_at_up1_shapes(dev, cin, C, pre):
+    """K1 and K2 (dX on) at up1's stages of the fused fine-tune UNet, B 2,
+    against their plain versions."""
+    B, H, W = 2, 256, 256
+    m, src, w, b, fold, gy, y, vec, var = _up1_operands(dev, B, H, W, cin, C,
+                                                        nhwc=False)
+    prev = fold if pre else (None, None)
+    out = ff.flat_conv3x3_mask_stats(src, m, w, b, H, W, *prev)
+    ref = ff.flat_conv3x3_mask_stats_plain(src, m, w, b, H, W, *prev)
+    args = (gy, y, src, m, vec[0], vec[1], vec[2], var, vec[3], vec[4],
+            m.float().sum(), w, H, W, fold if pre else None, True)
+    n0 = ff.flat_bwd_mega.launches
+    dh, dw = ff.flat_bwd_mega(*args)
+    dhr, dwr = ff.flat_bwd_mega_plain(*args)
+    torch.cuda.synchronize()
+    assert ff.flat_bwd_mega.launches == n0 + 1
+    assert _rel(out[0], ref[0]) <= 1e-2
+    assert _rel(out[1], ref[1]) <= 1e-3 and _rel(out[2], ref[2]) <= 1e-3
+    assert dh.shape == (B, cin, H * W)
+    assert _rel(dw, dwr) <= 1e-3 and _rel(dh, dhr) <= 1e-2
+
+
+@pytest.mark.parametrize("cin,C,pre", UP1_STAGES)
+def test_nhwc_kernels_at_up1_shapes(dev, cin, C, pre):
+    """K7 and K8 at up1's stages (FUSED_IMPL="nhwc"), B 2, against their
+    plain versions."""
+    B, H, W = 2, 256, 256
+    m, src, w, b, fold, gy, y, vec, var = _up1_operands(dev, B, H, W, cin, C,
+                                                        nhwc=True)
+    prev = fold if pre else (None, None)
+    out = fc.conv3x3_mask_stats(src, m, w, b, *prev)
+    ref = fc.conv3x3_mask_stats_plain(src, m, w, b, *prev)
+    args = (gy, y, src, m, vec[0], vec[1], vec[2], var, vec[3], vec[4],
+            m.float().sum(), w, fold if pre else None)
+    n0 = fc.bwd_mega.launches
+    dh, dw = fc.bwd_mega(*args)
+    dhr, dwr = fc.bwd_mega_plain(*args)
+    torch.cuda.synchronize()
+    assert fc.bwd_mega.launches == n0 + 1
+    assert _rel(out[0], ref[0]) <= 1e-2
+    assert _rel(out[1], ref[1]) <= 1e-3 and _rel(out[2], ref[2]) <= 1e-3
+    assert dh.shape == (B, H, W, cin)
+    assert _rel(dw, dwr) <= 1e-3 and _rel(dh, dhr) <= 1e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 32, 40, 64), (1, 8, 24, 20),
                                    (1, 4, 8, 200)])

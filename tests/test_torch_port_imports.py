@@ -1,6 +1,8 @@
 """The port stands alone: no file of cmx_torch/ or chip_smoke.py imports
-JAX, flax, optax or anything of the cmx package; the CUDA and Triton kernels
-are built or imported only inside the functions that launch them."""
+JAX, flax, optax or anything of the cmx package, nor scikit-learn (the card
+machine has none: cmx_torch/data/splits.py repeats its arithmetic); the CUDA
+and Triton kernels are built or imported only inside the functions that
+launch them."""
 
 import ast
 import importlib
@@ -9,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cmx", "triton"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cmx", "triton",
+             "sklearn"}
 PORT_FILES = sorted((ROOT / "cmx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
