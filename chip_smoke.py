@@ -102,18 +102,51 @@ random images and one-hot masks from a seed):
      finite train and valid logs in every fold and the final fit, K1/K2
      launches equal to FT1's per-step calls times the training steps (the
      frozen-BN evaluations add none), test_<tag>.json with a finite dice.
+CM-UNet pretraining (PRESETS["cmunet"]: full widths, 256^2 images, 224^2
+views, bf16, AdamW at lr 1.5e-4 * batch/256 on the preset's warm-up, wd
+0.05, clip 5, mask 0.65, T 0.07, EMA 0.996; cmx builds it unfused, so it
+runs no kernel of the port) and MAE (PRESETS["mae"] with
+model.fused_conv=True: the UNet(out_classes=1) through K1/K2 at down1,
+down2 and up1, SGD lr 1e-2 momentum 0.9, mask 0.5, 256^2, bf16):
+  CM1. counters zeroed, SPARK_STEPS steps at batch CM_BATCH (random images,
+     the target and reduce kernel from seed 0), each synchronize-bounded
+     and checked (finite loss, loss_ct, loss_rc and grad norm; a leaf of the
+     target's encoder and one of its projector equal m * old + (1 - m) *
+     the updated online leaf; the reduce kernel unchanged bit for bit);
+     then the target's BN running stats moved, no kernel of the port
+     launched, step time, img/s, peak memory, a two-step profile.
+     `python3 chip_smoke.py --cm1-batch N` builds nothing and runs CM1 alone
+     at batch N (the batch-128 attempt: its peak, or the out-of-memory
+     error);
+  MAE1. at batch MAE_BATCH: one step recorded (K1 6, K2 6) and every call
+     replayed as in phase 1; counters zeroed, SPARK_STEPS steps with
+     launches equal to the recorded calls, step time, a two-step profile;
+     the unfused step timed and profiled the same way; the fused model
+     against the plain one at batch 2 (phase 3's margins);
+  CM-CLI. `cmx_torch.cli.pretrain.main` in this process on the CLI phase's
+     corpus (`cm_cli_phase`): --task cmunet --preset at batch CM_CLI_BATCH
+     with validation, 2 epochs, then a call to 3 that resumes (no kernel of
+     the port launched; log.jsonl with finite losses; encoder.npz reloaded
+     into a fresh UNet bit for bit); --task mae_tuned --preset with
+     model.fused_conv=True for one epoch, K1/K2 launches equal to MAE1's
+     per-step calls times its steps (K1 also for the validation forwards);
+     then FT-CLI again from the CM-UNet encoder.npz: the paper's pipeline,
+     CM-UNet then fine-tune, with its test Dice.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
-as JSON (the SparK/MoCo paths' rows, as before; K3's row sums its forward
-and backward, which it also lists under "parts"), the card's name and power
-limit (nvidia-smi), and {"ok": true, "device": {...}} last.
+as JSON (the SparK/MoCo paths' rows, as before, K1's and K2's launches
+counting MAE1's 8-step run too; K3's row sums its forward and backward,
+which it also lists under "parts"), the card's name and power limit
+(nvidia-smi), and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -283,9 +316,11 @@ def make_cfg(batch: int, fused: bool = True):
     return cfg
 
 
-def make_step(cfg):
+def make_step(cfg, lr=None, seed: int = 1):
     """(state, step, imgs): the CLI's step for `cfg` on the card (a task's
-    `extra` made by its init_extra, as for MoCo)."""
+    `extra` made by its init_extra, as for MoCo and CM-UNet); `lr` (a
+    schedule) in place of cfg.optim.lr; the images and `extra` from
+    `seed`."""
     import torch
 
     from cmx_torch.cli.pretrain import build_task
@@ -295,10 +330,10 @@ def make_step(cfg):
 
     task, model = build_task(cfg, torch.bfloat16, "cuda")
     o = cfg.optim
-    tx = make_optimizer(o.name, o.lr, o.weight_decay, momentum=o.momentum,
-                        clip_norm=o.clip_norm,
+    tx = make_optimizer(o.name, o.lr if lr is None else lr, o.weight_decay,
+                        momentum=o.momentum, clip_norm=o.clip_norm,
                         named_params=model.named_parameters())
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     extra = task.init_extra(gen) if task.init_extra else None
     state = TrainState.create(model=model, tx=tx, seed=cfg.train.seed,
                               extra=extra)
@@ -1096,7 +1131,6 @@ def cli_phase(work: Path, per_step: dict):
     exported encoder.npz, the corpus directory); both stay in `work`."""
     import contextlib
     import hashlib
-    import re
 
     import torch
 
@@ -1401,7 +1435,277 @@ def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
     return secs
 
 
-def main() -> int:
+CM_BATCH = 64      # CM1's batch (the preset's 256 does not fit one card)
+CM_CLI_BATCH = 16  # CM-CLI's batch (both tasks): 4 steps an epoch
+MAE_BATCH = 64     # the mae preset's batch
+
+
+def make_cm_cfg(batch: int):
+    """PRESETS["cmunet"] at full width: 256^2 images, 224^2 views, bf16,
+    AdamW (wd 0.05, clip 5), mask 0.65, T 0.07, EMA 0.996."""
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.config.presets import PRESETS
+
+    cfg = PRESETS["cmunet"](Config())
+    apply_overrides(cfg, [f"train.batch_size={batch}", "data.image_size=256"])
+    return cfg
+
+
+def cm_run(state, step, imgs, steps: int, label: str):
+    """run_steps with CM1's check after each step: loss_ct and loss_rc
+    finite, a leaf of the target's encoder and one of its projector equal
+    m * old + (1 - m) * the updated online leaf (m 0.996, fp32 rounding),
+    the reduce kernel unchanged bit for bit. Returns (step_ms, metrics, the
+    largest move of a target BN running stat over the run)."""
+    import torch
+
+    extra = state.extra
+    m = 0.996
+    target, online = extra["target_model"], state.model
+    leaves = ("encoder.down1.double_conv.conv0.kernel", "projector.fc0.kernel")
+    tp = dict(target.named_parameters())
+    op = dict(online.named_parameters())
+    kernel0 = extra["reduce_kernel"].clone()
+    stats0 = [b.clone() for b in target.buffers()]
+
+    def check():
+        old = {n: tp[n].detach().clone() for n in leaves}
+
+        def after(i, vals):
+            for k in ("loss_ct", "loss_rc"):
+                if not math.isfinite(vals[k]):
+                    fail(f"{label} step {i}: {k} is not finite")
+            errs = {}
+            with torch.no_grad():
+                for n in leaves:
+                    want = m * old[n] + (1.0 - m) * op[n]
+                    errs[n] = float((tp[n] - want).abs().max()
+                                    / want.abs().max())
+            print(f"  target EMA (m {m}) rel err {errs}", flush=True)
+            if max(errs.values()) > 1e-6:
+                fail(f"{label} step {i}: the target is not the EMA of the "
+                     f"updated online parameters")
+            if not torch.equal(extra["reduce_kernel"], kernel0):
+                fail(f"{label} step {i}: the reduce kernel changed")
+
+        return after
+
+    dt, metrics = run_steps(state, step, imgs, steps, label, check)
+    moved = max(float((b - b0).abs().max())
+                for b, b0 in zip(target.buffers(), stats0))
+    return dt, metrics, moved
+
+
+def cm_phase(batch: int, steps: int) -> dict:
+    """Phase CM1 (see the module docstring). Returns its numbers."""
+    import torch
+
+    from cmx_torch.train.schedules import scaled_base_lr, warmup_cosine
+
+    cfg = make_cm_cfg(batch)
+    # the preset's warm-up (40 of 300 epochs), one step an epoch
+    lr = warmup_cosine(scaled_base_lr(cfg.optim.lr, batch),
+                       cfg.train.epochs, cfg.optim.warmup_epochs)
+    torch.cuda.reset_peak_memory_stats()
+    state, step, imgs = make_step(cfg, lr=lr, seed=0)
+    model = state.model
+    print(f"CM1: CMUNetOnline params "
+          f"{sum(p.numel() for p in model.parameters())} (projector fc0 "
+          f"{tuple(model.projector.fc0.kernel.shape)}), batch {batch}, "
+          f"images {tuple(imgs.shape)}, AdamW peak lr "
+          f"{scaled_base_lr(cfg.optim.lr, batch):.4g} warm-up "
+          f"{cfg.optim.warmup_epochs} steps, clip {cfg.optim.clip_norm}",
+          flush=True)
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    step_ms, _, moved = cm_run(state, step, imgs, steps, "CM1")
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"CM1: launches of the port's kernels in {steps} steps {launches} "
+          f"(expected none: cmx builds CM-UNet unfused); target BN running "
+          f"stats moved (largest change {moved:.3e}); peak memory "
+          f"{peak:.2f} GiB (max_memory_allocated over set-up and the "
+          f"steps)", flush=True)
+    if any(launches.values()):
+        fail("the CM-UNet step launched a kernel of the port")
+    if not moved > 0.0:
+        fail("the CM-UNet target's BN running stats did not move")
+    profile_steps(lambda: step(state, imgs), 2, step_ms, "CM1")
+    del state, step, imgs, model
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
+            "peak_gib": peak}
+
+
+def make_mae_cfg(batch: int, fused: bool):
+    """PRESETS["mae"] at full width: UNet(out_classes=1), 256^2, bf16, SGD
+    lr 1e-2 momentum 0.9, mask 0.5, patch 16; model.fused_conv=`fused`."""
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.config.presets import PRESETS
+
+    cfg = PRESETS["mae"](Config())
+    apply_overrides(cfg, [f"train.batch_size={batch}", "data.image_size=256",
+                          f"model.fused_conv={fused}"])
+    return cfg
+
+
+def mae_phase(batch: int, steps: int, iters: int):
+    """Phase MAE1 (see the module docstring). Returns (the per-step calls,
+    the launches of the 8-step run, the fused and unfused step_ms, the
+    K1/K2 replay sums)."""
+    import torch
+
+    from cmx_torch.ops import fused_conv_flat as ff
+    from cmx_torch.ops.masking import random_patch_mask
+    from cmx_torch.ssl.reconstruction import make_mae_task
+
+    state, step, imgs = make_step(make_mae_cfg(batch, True))
+    calls, loss = record_step(state, step, imgs)
+    per_step = collections.Counter(name for name, _ in calls)
+    print(f"MAE1 recorded step: kernel calls per step {dict(per_step)} "
+          f"(expected K1 6, K2 6); loss {loss:.6f}", flush=True)
+    if dict(per_step) != {n: 6 for n in FLAT_KERNELS}:
+        fail(f"the MAE step called {dict(per_step)}, expected K1 6 and K2 6")
+    print("MAE1 replay of every K1/K2 call of the recorded step:", flush=True)
+    kern = kernel_phase(calls, iters)
+    del calls
+    torch.cuda.empty_cache()
+    launches, step_ms = step_phase(state, step, imgs, per_step, steps,
+                                   "mae fused", ff.FlatDoubleConv)
+    del state, step
+    torch.cuda.empty_cache()
+
+    wrappers = [k[0] for k in kernels().values()]
+    before = [fn.launches for fn in wrappers]
+    plain, pstep, _ = make_step(make_mae_cfg(batch, False))
+    plain_ms, _ = run_steps(plain, pstep, imgs, steps, "mae unfused")
+    if [fn.launches for fn in wrappers] != before:
+        fail("the unfused MAE step launched a kernel of the port")
+    profile_steps(lambda: pstep(plain, imgs), 2, plain_ms, "mae unfused")
+    print(f"mae fused step_ms={step_ms:.3f} unfused step_ms={plain_ms:.3f} "
+          f"(fused/unfused {step_ms / plain_ms:.3f}; batch {batch}, "
+          f"{imgs.shape[-1]}^2, bf16, SGD)", flush=True)
+
+    # the fused model against the plain one from the same weights and mask
+    fused, _, _ = make_step(make_mae_cfg(2, True))
+    plain.model.load_state_dict(fused.model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    draws = {"active": random_patch_mask(gen, 2, imgs.shape[-1], 16, 0.5)}
+    losses = {}
+    for name, st in (("fused", fused), ("plain", plain)):
+        task, _ = make_mae_task(st.model)
+        st.model.train()
+        loss, _ = task.loss_fn(st.model, imgs[:2], gen, draws)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
+    bs_f = dict(fused.model.named_buffers())
+    d_bs = max(float((b - bs_f[n]).abs().max())
+               for n, b in plain.model.named_buffers())
+    print(f"mae reference: loss fused={losses['fused']:.6f} plain="
+          f"{losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); BN "
+          f"running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
+    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2
+            and d_bs <= 5e-2):
+        fail("the fused MAE model disagrees with the plain one")
+    del fused, plain, pstep, imgs
+    torch.cuda.empty_cache()
+    return dict(per_step), launches, step_ms, plain_ms, kern
+
+
+def cm_cli_phase(work: Path, data_dir: str, mae_per_step: dict):
+    """Phase CM-CLI (see the module docstring). Returns (the phase's
+    seconds, the exported encoder.npz)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cmx_torch.ckpt.checkpoint import load_encoder
+    from cmx_torch.cli.pretrain import main as pretrain_main
+    from cmx_torch.models.unet import UNet
+
+    t0 = time.perf_counter()
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    base = ["data.synthetic=True", f"data.synthetic_n={CLI_IMAGES}",
+            f"data.data_dir={data_dir}", f"data.image_size={CLI_SIZE}",
+            f"train.batch_size={CM_CLI_BATCH}", "train.patience=5"]
+    runs = []
+    for task, args in (("cmunet", ["train.epochs=2",
+                                   "train.save_every_epoch=True"]),
+                       ("cmunet", ["train.epochs=3",
+                                   "train.save_every_epoch=True"]),
+                       ("mae_tuned", ["train.epochs=1",
+                                      "model.fused_conv=True"])):
+        for fn in wrappers.values():
+            fn.launches = 0
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = pretrain_main(["--task", task, "--preset"] + base + args
+                                + [f"train.ckpt_dir={work}/cm_ckpt"])
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        steps = out["steps_per_epoch"] * (out["epochs_run"] - (
+            runs[-1][1]["epochs_run"] if task == "cmunet" and runs else 0))
+        val = out["val_batches"] * (1 if task == "mae_tuned" else 0)
+        # MAE: validation forwards run K1 too (train-mode BN, as cmx's)
+        expect = ({n: 0 for n in wrappers} if task == "cmunet" else
+                  {n: mae_per_step.get(n, 0) * (
+                      steps + (val if n == "flat_conv3x3_mask_stats" else 0))
+                   for n in wrappers})
+        rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
+                           "".join(tee.lines))
+        resumed = re.findall(r"resumed from step (\d+)", "".join(tee.lines))
+        print(f"CM-CLI --task {task} --preset {' '.join(args)}: "
+              f"{steps} training steps, {out['val_batches']} validation "
+              f"batches an epoch, resumed from {resumed or 'none'}; epoch "
+              f"img/s " + ", ".join(f"epoch {e}: {r} img/s in {t} s"
+                                    for e, t, r in rates)
+              + f"; launches {launches} (expected {expect})", flush=True)
+        if launches != expect:
+            fail(f"the {task} CLI run did not launch the expected kernels")
+        runs.append((task, out))
+    cm = runs[1][1]
+    if [r[1]["state"].step for r in runs[:2]] != [
+            2 * cm["steps_per_epoch"], 3 * cm["steps_per_epoch"]]:
+        fail("the CM-UNet CLI did not resume to its third epoch")
+    with open(Path(cm["ckpt_dir"]) / "log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    print(f"CM-CLI log.jsonl: epochs {[r['epoch'] for r in log]}, loss_ct "
+          f"{[round(r['loss_ct'], 6) for r in log]}, loss_rc "
+          f"{[round(r['loss_rc'], 6) for r in log]}, val_loss "
+          f"{[round(r['val_loss'], 6) for r in log]}", flush=True)
+    if [r["epoch"] for r in log] != [0, 1, 2] or not all(
+            math.isfinite(r[k]) for r in log
+            for k in ("loss", "loss_ct", "loss_rc", "val_loss")):
+        fail("the CM-UNet CLI's log.jsonl lacks an epoch or holds a "
+             "non-finite value")
+    fresh = load_encoder(cm["encoder"], UNet(dtype=torch.bfloat16).to("cuda"))
+    final = cm["state"].model.encoder.state_dict()
+    same = all(torch.equal(t, final[n])
+               for n, t in fresh.encoder.state_dict().items())
+    with np.load(cm["encoder"]) as f:
+        n_files = len(f.files)
+    print(f"CM-CLI export: encoder.npz ({n_files} arrays) reloaded into a "
+          f"fresh UNet: encoder equal bit for bit {same}", flush=True)
+    if not same:
+        fail("the CM-UNet CLI's encoder.npz does not reload to the run's "
+             "encoder")
+    encoder = cm["encoder"]
+    del runs, cm, fresh
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"CM-CLI phase took {secs:.1f} s", flush=True)
+    return secs, encoder
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cm1-batch", type=int, default=None,
+                   help="run phase CM1 alone at this batch and report its "
+                        "peak memory (an out-of-memory error propagates)")
+    args = p.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1424,6 +1728,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.cm1_batch is not None:
+        cm = cm_phase(args.cm1_batch, SPARK_STEPS)
+        print(json.dumps({"cm1": {"batch": args.cm1_batch, **cm}}),
+              flush=True)
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1518,6 +1828,28 @@ def main() -> int:
               flush=True)
         finetune_cli_phase(Path(work), encoder, data_dir, ft_per_step)
 
+        t0 = time.perf_counter()
+        cm = cm_phase(CM_BATCH, SPARK_STEPS)
+        mae_per_step, mae_launches, mae_ms, mae_plain_ms, mae_kern = \
+            mae_phase(MAE_BATCH, SPARK_STEPS, ITERS)
+        for name in FLAT_KERNELS:
+            k = mae_kern[name]
+            bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
+            print(f"MAE1 {name}: {mae_per_step[name]} calls a step, "
+                  f"{k['ms']:.4f} ms a step = {k['ms'] / bms:.2f}x its bound "
+                  f"({bms:.4f} ms, {by}), plain {k['plain_ms']:.4f}, library "
+                  f"{k['library_ms']:.4f} ({k['ms'] / k['library_ms']:.2f}x), "
+                  f"max_abs_err {k['max_abs_err']:.3e}; by call (kernel_ms / "
+                  f"library_ms): {show(k['calls'])}", flush=True)
+        print(f"CM1/MAE1 (same call): CM-UNet batch {CM_BATCH} step_ms="
+              f"{cm['step_ms']:.3f} img_per_s={cm['img_per_s']:.2f} peak "
+              f"{cm['peak_gib']:.2f} GiB; MAE batch {MAE_BATCH} fused "
+              f"step_ms={mae_ms:.3f} img_per_s={MAE_BATCH / mae_ms * 1e3:.2f}, "
+              f"unfused {mae_plain_ms:.3f}; the phases took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _, cm_encoder = cm_cli_phase(Path(work), data_dir, mae_per_step)
+        finetune_cli_phase(Path(work), cm_encoder, data_dir, ft_per_step)
+
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))
                for _, rows, cols, _, _ in crops]
@@ -1529,7 +1861,9 @@ def main() -> int:
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    launches = {**{n: spark_launches[n] for n in SPARK_KERNELS},
+    # K1/K2: the SparK run's launches and MAE1's
+    launches = {**{n: spark_launches[n] + mae_launches.get(n, 0)
+                   for n in SPARK_KERNELS},
                 **{n: moco_launches[n] for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}

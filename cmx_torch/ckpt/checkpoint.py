@@ -4,9 +4,10 @@ cmx/ckpt/checkpoint.py).
 Two formats, as in cmx, with one difference:
   * Resume files. `CheckpointManager` keeps the newest `max_to_keep`
     `step_<N>.pt` files of `torch.save`: the model's state_dict (parameters
-    and BN running stats), the optimizer's state (`Lamb` / `Sgd`
-    state_dict), the task's `extra` (MoCo: the key encoder's state_dict,
-    the queue and its pointer), the step, the seed and the save's metrics;
+    and BN running stats), the optimizer's state_dict, the task's `extra`
+    (each module's state_dict, each tensor: MoCo's key encoder, queue and
+    pointer; CM-UNet's target and reduce kernel), the step, the seed and
+    the save's metrics;
     beside them `best_metric.json` and `config.json`, as cmx's. cmx's resume
     files are orbax checkpoints of its TrainState: neither package reads the
     other's.
@@ -27,9 +28,13 @@ that differ:
     spatial flip (lax.conv_transpose correlates with the kernel as given;
     torch applies the conv-gradient kernel);
   * mask tokens: flax (1,1,1,C) <-> torch (1,C,1,1).
-MoCo's task state crosses the same way: cmx's extra {"key_params",
+Dense kernels (the CM-UNet necks) are kept in flax's (in, out) layout in
+the port and cross as they are.
+The task states cross the same way: MoCo's cmx extra {"key_params",
 "key_batch_stats", "queue", "queue_ptr"} <-> the port's {"key_model",
-"queue", "queue_ptr"}. Leaves are numpy arrays.
+"queue", "queue_ptr"}; CM-UNet's {"target_params", "target_batch_stats",
+"reduce_kernel"} <-> {"target_model", "reduce_kernel"} (the reduce kernel
+HWIO (1, 1, 1024, 256) in both). Leaves are numpy arrays.
 """
 
 from __future__ import annotations
@@ -149,6 +154,31 @@ def moco_extra_to_flax(extra: Dict[str, Any]) -> Dict[str, Any]:
             "key_batch_stats": tree["batch_stats"],
             "queue": extra["queue"].detach().float().cpu().numpy().copy(),
             "queue_ptr": np.int32(int(extra["queue_ptr"]))}
+
+
+def cmunet_extra_from_flax(target_module: nn.Module,
+                           extra: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's CM-UNet `extra` from cmx's: the target's weights and BN
+    stats loaded into `target_module` (in place; its parameters stop
+    requiring grad), the reduce kernel as a tensor on its device."""
+    from_flax(target_module, {"params": extra["target_params"],
+                              "batch_stats": extra["target_batch_stats"]})
+    for p in target_module.parameters():
+        p.requires_grad_(False)
+    dev = next(target_module.parameters()).device
+    kernel = np.array(extra["reduce_kernel"], dtype=np.float32)
+    return {"target_model": target_module,
+            "reduce_kernel": torch.from_numpy(kernel).to(dev)}
+
+
+@torch.no_grad()
+def cmunet_extra_to_flax(extra: Dict[str, Any]) -> Dict[str, Any]:
+    """cmx's CM-UNet extra tree (numpy leaves) from the port's."""
+    tree = to_flax(extra["target_model"])
+    return {"target_params": tree["params"],
+            "target_batch_stats": tree["batch_stats"],
+            "reduce_kernel": extra["reduce_kernel"].detach().float().cpu()
+            .numpy().copy()}
 
 
 def _extra_state(extra: Any) -> Any:

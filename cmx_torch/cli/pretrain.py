@@ -4,8 +4,8 @@
     python -m cmx_torch.cli.pretrain --device cpu --task spark \
         data.synthetic=True train.epochs=2 ...
 
-`build_task` for task.name "spark" and "moco" (genesis, mae and cmunet
-raise, naming their ROADMAP items), then `main`: the config printed, the
+`build_task` for task.name "spark", "moco", "mae" and "cmunet" (genesis
+raises, naming its ROADMAP item), then `main`: the config printed, the
 corpus loaded (the native loader, else numpy/PIL, as in cmx), the seeded
 sampler, the schedules, the optimizer, resume from the newest checkpoint,
 the epoch loop with the device-resident feed, validation with patience,
@@ -47,20 +47,32 @@ from cmx_torch import resolve_device
 from cmx_torch.config.config import Config, apply_overrides, display, to_dict
 from cmx_torch.parallel.dist import (InfiniteBatchSampler,
                                      initialize_distributed, process_info)
-from cmx_torch.train.trainer import Task
+from cmx_torch.train.trainer import Task, extra_buffers
 
-_WAITING = {"genesis": "Genesis/MAE", "mae": "Genesis/MAE",
-            "cmunet": "CM-UNet"}
+_WAITING = {"genesis": "Genesis"}
 
 
 def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                ) -> Tuple[Task, torch.nn.Module]:
     """(task, model) for cfg.task.name; the model's random weights come
     from cfg.train.seed and live on `device`. A task with state of its own
-    (MoCo) makes it with `task.init_extra(gen)`."""
+    (MoCo, CM-UNet) makes it with `task.init_extra(gen)`."""
     t = cfg.task
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.train.seed)
+    if t.name == "cmunet":
+        from cmx_torch.ssl.cmunet import CMUNetOnline, make_cmunet_task
+
+        # As in cmx: never fused, model.remat not read; ema_momentum passed.
+        model = CMUNetOnline(dtype=dtype, view_size=t.view_size)
+        model.reset_parameters(gen)
+        task, _ = make_cmunet_task(model.to(dev), mask_ratio=t.mask_ratio,
+                                   patch_size=t.patch_size,
+                                   temperature=t.temperature,
+                                   base_momentum=t.ema_momentum,
+                                   view_size=t.view_size, augment=t.augment,
+                                   crop_impl=t.crop_impl)
+        return task, model
     if t.name == "moco":
         from cmx_torch.models.unet import UNetEncoderGAP
         from cmx_torch.ssl.moco import make_moco_task
@@ -77,7 +89,7 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                                  crop_method=t.crop_method,
                                  crop_impl=t.crop_impl)
         return task, model
-    if t.name != "spark":
+    if t.name not in ("spark", "mae"):
         item = _WAITING.get(t.name)
         if item is None:
             raise ValueError(f"unknown pretrain task {t.name!r}")
@@ -86,6 +98,17 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
     if cfg.model.remat:
         raise NotImplementedError("model.remat is not ported yet "
                                   "(ROADMAP: remat)")
+    if t.name == "mae":
+        from cmx_torch.models.unet import UNet
+        from cmx_torch.ssl.reconstruction import make_mae_task
+
+        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv)
+        model.reset_parameters(gen)
+        task, _ = make_mae_task(model.to(dev), mask_ratio=t.mask_ratio,
+                                patch_size=t.patch_size,
+                                shared_mask=t.shared_mask,
+                                masked_loss_only=t.masked_loss_only)
+        return task, model
     from cmx_torch.ssl.spark import SparKModel, make_spark_task
 
     model = SparKModel(mask_ratio=t.mask_ratio, full_unet=t.full_unet,
@@ -132,20 +155,23 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=dev).manual_seed(seed % (2 ** 63))
 
 
-def spark_val_loss(task: Task, state, batch: torch.Tensor,
-                   gen: torch.Generator) -> torch.Tensor:
-    """SparK's validation loss as cmx's jitted val_loss_fn computes it: the
-    train-mode forward (batch statistics), whose updated BN running
-    statistics cmx discards -- so they are put back here afterwards."""
+def replay_val_loss(task: Task, state, batch: torch.Tensor,
+                    gen: torch.Generator) -> torch.Tensor:
+    """The validation loss of every task but MoCo, as cmx's jitted
+    val_loss_fn computes it: the train-mode loss (batch statistics), whose
+    updated BN running statistics cmx discards, the model's and those of
+    the modules in `extra` (CM-UNet's target) -- so they are put back here
+    afterwards."""
     model = state.model
-    saved = [b.detach().clone() for b in model.buffers()]
+    buffers = list(model.buffers()) + extra_buffers(state.extra)
+    saved = [b.detach().clone() for b in buffers]
     model.train()
     try:
         with torch.no_grad():
             loss, _ = task.loss_fn(model, batch, gen, None, state.extra)
     finally:
         with torch.no_grad():
-            for b, s in zip(model.buffers(), saved):
+            for b, s in zip(buffers, saved):
                 b.copy_(s)
     return loss
 
@@ -184,8 +210,9 @@ def _corpus_stamp_info(cfg: Config):
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--task", default=None,
-                   help="moco|spark (genesis, mae, mae_tuned and cmunet are "
-                        "not ported yet; mae_tuned requires --preset)")
+                   help="mae|mae_tuned|moco|spark|cmunet (genesis is not "
+                        "ported yet; mae_tuned requires --preset: it is a "
+                        "preset key that resolves task.name back to mae)")
     p.add_argument("--preset", action="store_true",
                    help="start from the reference recipe for --task "
                         "(cmx_torch.config.presets) before applying overrides")
@@ -396,7 +423,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             else:
                 # one generator seed for the epoch's batches, as cmx's one
                 # fold_in(key(seed), ep)
-                vlosses = [{"val_loss": spark_val_loss(
+                vlosses = [{"val_loss": replay_val_loss(
                     task, state, vbatch,
                     _generator(dev, cfg.train.seed * 1_000_003 + 7919 * ep))}
                     for vbatch in batches]

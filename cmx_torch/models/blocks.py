@@ -71,6 +71,24 @@ class ConvTranspose(nn.Module):
                                   self.bias.to(self.dtype), stride=2)
 
 
+class Dense(nn.Module):
+    """flax nn.Dense(features) with fp32 parameters; the kernel is kept in
+    flax's (in, out) layout, so it crosses checkpoints as it is."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            _lecun_normal_(self.kernel, self.kernel.shape[0], gen)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over active positions only (cmx's default `shift_ra`
     variant): one-pass moments shifted by the stored running mean,
@@ -243,5 +261,5 @@ class UpBlock(nn.Module):
 def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:
     """Initialize every block of `module` in a fixed order from `gen`."""
     for m in module.modules():
-        if isinstance(m, (Conv, ConvTranspose, MaskedBatchNorm)):
+        if isinstance(m, (Conv, ConvTranspose, Dense, MaskedBatchNorm)):
             m.reset_parameters(gen)

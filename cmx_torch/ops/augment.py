@@ -1,6 +1,6 @@
-"""SparK and MoCo pretraining augmentation and the supervised fine-tune
-chain (port of cmx/ops/augment.py:34-137, 444-449, 686-719, 757-939,
-942-947, 986-1054), written over the batch.
+"""SparK, MoCo and CM-UNet pretraining augmentation and the supervised
+fine-tune chain (port of cmx/ops/augment.py:34-137, 444-449, 686-744,
+757-939, 942-947, 986-1110), written over the batch.
 
 The crop is torchvision's RandomResizedCrop window (continuous) resampled to
 (out, out) by the separable weight-matrix map of `_resize_weight_mat`:
@@ -16,6 +16,10 @@ nearest rotation as one flat gather over the batch, then the crop (K4
 `crop_resize_pallas` for crop_impl="pallas", the plain weight-matrix map for
 None / "scale_translate"), then a per-sample Gaussian blur, flips and
 max/10 Gaussian noise. Every random draw may be injected (`draws`).
+
+The CM-UNet views (`cmunet_two_views_batch`) are cmx's plain chain: the
+shared cubic crop to 256^2 and flip, the centre and the shifted crops, and
+noise on view 2; every draw may be injected (`cmunet_view_draws`).
 
 The fine-tune chain (`finetune_train_aug`) is cmx's per-image one, applied
 to every image of the batch with per-image draws (`finetune_draws`):
@@ -284,6 +288,98 @@ def moco_view_aug_batch(imgs: torch.Tensor, out_size: int = 224,
     else:
         cropped = resized_crop(rot, params, out_size, crop_method)
     return _moco_view_post_crop(cropped, d)
+
+
+# ------------------------------------------------------------------- CM-UNet
+
+CMUNET_BASE = 256  # the shared RandomResizedCrop's output size
+CMUNET_SCALE = (0.2, 1.0)
+# crop_impl values that take cmx's plain vmapped chain for the CM-UNet views
+# (cmx/ops/augment.py:1091-1093); "bank" and "bank_fused" are not ported.
+_CMUNET_CHAIN_IMPLS = (None, "scale_translate", "einsum", "einsum_bf16",
+                       "pallas")
+
+
+def shift_pixel_crop(imgs: torch.Tensor, out_size: int = 224,
+                     shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (out, out) centre crop of each (B, H, W) image, offset by
+    shift[i] = (dy, dx) >= 0 and clipped to the image (CM-UNet's
+    ShiftPixel, cmae/datasets/pipelines/processing.py:98-127); shift None
+    is the plain centre crop."""
+    b, h, w = imgs.shape
+    y0, x0 = (h - out_size) // 2, (w - out_size) // 2
+    if shift is None:
+        return imgs[:, y0:y0 + out_size, x0:x0 + out_size]
+    ar = torch.arange(out_size, device=imgs.device)
+    rows = (y0 + shift[:, 0]).clamp(0, h - out_size)[:, None] + ar
+    cols = (x0 + shift[:, 1]).clamp(0, w - out_size)[:, None] + ar
+    idx = torch.arange(b, device=imgs.device)[:, None, None]
+    return imgs[idx, rows[:, :, None], cols[:, None, :]]
+
+
+def cmunet_view_draws(gen: Optional[torch.Generator], batch: int, h: int,
+                      w: int, out_size: int = 224, shift: int = 31,
+                      draws: Optional[dict] = None) -> dict:
+    """The random draws of the CM-UNet views of a batch, from `gen`, except
+    those given in `draws`:
+      crop (B,4) RandomResizedCrop(256, scale (0.2, 1)) windows
+      (sy, ty, sx, tx); flip (B,) p 0.5;
+      shift (B,2) view 2's (dy, dx), integers in [0, shift];
+      noise_apply (B,) p 0.5, noise (B, out, out) standard normal."""
+    d = dict(draws or {})
+    dev = None if gen is None else gen.device
+    fill = {
+        "crop": lambda: _crop_window_params(gen, batch, h, w, CMUNET_BASE,
+                                            CMUNET_SCALE, MOCO_RATIO),
+        "flip": lambda: torch.rand((batch,), generator=gen, device=dev) < 0.5,
+        "shift": lambda: torch.randint(0, shift + 1, (batch, 2),
+                                       generator=gen, device=dev),
+        "noise_apply": lambda: torch.rand((batch,), generator=gen,
+                                          device=dev) < 0.5,
+        "noise": lambda: torch.randn((batch, out_size, out_size),
+                                     generator=gen, device=dev),
+    }
+    for name, draw in fill.items():
+        if name not in d:
+            d[name] = draw()
+    return d
+
+
+def cmunet_two_views_batch(imgs: torch.Tensor, out_size: int = 224,
+                           shift: int = 31, crop_impl: Optional[str] = None,
+                           gen: Optional[torch.Generator] = None,
+                           draws: Optional[dict] = None):
+    """CM-UNet's two views of a (B, H, W) batch
+    (cmae/datasets/cmunet_dataset.py:39-55): one shared cubic
+    RandomResizedCrop to 256^2 (scale (0.2, 1)) and HFlip p 0.5, then view 1
+    the centre out^2 crop and view 2 the crop offset by up to `shift`
+    pixels with max/10 Gaussian noise p 0.5. crop_impl None,
+    "scale_translate", "einsum", "einsum_bf16" and "pallas" all run this
+    chain, as in cmx (its "pallas" too: no kernel). The draws of
+    `cmunet_view_draws` come from `gen` unless given in `draws`."""
+    if crop_impl not in _CMUNET_CHAIN_IMPLS:
+        raise NotImplementedError(
+            f"crop_impl {crop_impl!r} is not ported yet (ROADMAP: MoCo "
+            "view-pipeline options)")
+    b, h, w = imgs.shape
+    dev = imgs.device
+    d = {k: v.to(dev) for k, v in
+         cmunet_view_draws(gen, b, h, w, out_size, shift, draws).items()}
+    base = resized_crop(imgs, d["crop"], CMUNET_BASE, method="cubic")
+    base = random_hflip(base, d["flip"])
+    v1 = shift_pixel_crop(base, out_size)
+    v2 = shift_pixel_crop(base, out_size, d["shift"])
+    return v1, gaussian_noise_max10(v2, d["noise"], d["noise_apply"])
+
+
+def cmunet_two_views(img: torch.Tensor, out_size: int = 224, shift: int = 31,
+                     gen: Optional[torch.Generator] = None,
+                     draws: Optional[dict] = None):
+    """The two views of one (H, W) image: cmunet_two_views_batch of a batch
+    of one."""
+    v1, v2 = cmunet_two_views_batch(img[None], out_size, shift, None, gen,
+                                    draws)
+    return v1[0], v2[0]
 
 
 # ------------------------------------------------------------------- fine-tune

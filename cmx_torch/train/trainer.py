@@ -41,7 +41,7 @@ class Task:
     init_extra: Optional[Callable] = None  # gen -> the task's `extra`
 
 
-def _extra_buffers(extra: Any) -> List[torch.Tensor]:
+def extra_buffers(extra: Any) -> List[torch.Tensor]:
     """Buffers of the modules held in `extra` (updated in place by their
     forward, so the guard restores them from a copy)."""
     if not isinstance(extra, dict):
@@ -66,7 +66,7 @@ def make_train_step(task: Task, tx) -> Callable:
         # masks): the step's generator lives on the first one's device
         lead = batch[0] if isinstance(batch, (tuple, list)) else batch
         gen = state.step_generator(lead.device)
-        buffers = list(model.buffers()) + _extra_buffers(state.extra)
+        buffers = list(model.buffers()) + extra_buffers(state.extra)
         old_buffers = [b.clone() for b in buffers]
         params = tx.params
         loss, aux = task.loss_fn(model, batch, gen, draws, state.extra)

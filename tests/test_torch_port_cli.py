@@ -435,7 +435,7 @@ def test_cli_refuses_tensorboard_and_unported_tasks(tmp_path):
 
     with pytest.raises(NotImplementedError, match="TensorBoard"):
         _run(tmp_path, "tb", "spark", ["train.tensorboard=True"])
-    with pytest.raises(NotImplementedError, match="Genesis/MAE"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: Genesis"):
         main(["--device", "cpu", "--task", "genesis",
               f"data.data_dir={tmp_path / 'data'}"])
 
@@ -478,7 +478,7 @@ def test_cli_moco_trains_with_views(tmp_path, small_widths):
 
 
 def test_spark_validation_keeps_bn_running_stats():
-    from cmx_torch.cli.pretrain import spark_val_loss
+    from cmx_torch.cli.pretrain import replay_val_loss
     from cmx_torch.ssl.spark import make_spark_task
 
     model = _port_spark(6)
@@ -488,7 +488,7 @@ def test_spark_validation_keeps_bn_running_stats():
     before = {n: b.clone() for n, b in model.named_buffers()}
     imgs = torch.from_numpy(np.random.default_rng(2).normal(
         size=(4, 32, 32)).astype(np.float32))
-    loss = spark_val_loss(task, state, imgs, torch.Generator().manual_seed(0))
+    loss = replay_val_loss(task, state, imgs, torch.Generator().manual_seed(0))
     assert np.isfinite(float(loss))
     for n, b in model.named_buffers():
         assert torch.equal(b, before[n]), n

@@ -587,3 +587,95 @@ def test_nhwc_wrappers_refuse_what_the_kernels_do_not_take(dev):
         po.bn_relu_mask_pallas(x, vec, vec, mask)
     with pytest.raises(ValueError):
         po.bn_relu_mask_pallas(x.float(), vec, vec, mask.cpu())
+
+
+def _cmunet_state(device):
+    """The CM-UNet task at full width, view 32, fp32, AdamW on the preset's
+    warm-up (lr 0 at the first step), weights and extra from seeds, on
+    `device`."""
+    from cmx_torch.ssl.cmunet import CMUNetOnline, make_cmunet_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.schedules import warmup_cosine
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    model = CMUNetOnline(torch.float32, 32)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(device)
+    task, _ = make_cmunet_task(model, view_size=32, augment=False)
+    extra = task.init_extra(torch.Generator().manual_seed(1))
+    tx = make_optimizer("adamw", warmup_cosine(1e-3, 10, 2), 0.05,
+                        clip_norm=5.0, named_params=model.named_parameters())
+    return (TrainState.create(model=model, tx=tx, extra=extra),
+            make_train_step(task, tx))
+
+
+def test_cmunet_fp32_step_on_card_matches_cpu(dev):
+    """Two CM-UNet steps (fp32, view 32, batch 4, the same masks) on the card
+    against the port on the CPU: loss, loss_ct and loss_rc within 1e-4
+    relative (the second step's forward runs on parameters the first left
+    equal: its lr is 0), the target's BN running stats within 1e-4, the
+    reduce kernel unchanged, no kernel of the port launched (cmx builds
+    CM-UNet unfused)."""
+    from cmx_torch.ops.masking import random_patch_mask
+
+    rng = np.random.default_rng(9)
+    imgs = torch.from_numpy(rng.normal(size=(4, 64, 64)).astype(np.float32))
+    gen = torch.Generator().manual_seed(2)
+    actives = [random_patch_mask(gen, 4, 32, 16, 0.65) for _ in range(2)]
+    n0 = (ff.flat_conv3x3_mask_stats.launches, ff.flat_bwd_mega.launches)
+    res = []
+    for d in ("cpu", dev):
+        state, step = _cmunet_state(d)
+        kernel = state.extra["reduce_kernel"].clone()
+        ms = [step(state, imgs.to(d), {"active": a.to(d)}) for a in actives]
+        res.append(([{k: float(v) for k, v in m.items()} for m in ms],
+                    [b.cpu() for b in state.extra["target_model"].buffers()]))
+        assert torch.equal(state.extra["reduce_kernel"], kernel)
+    assert (ff.flat_conv3x3_mask_stats.launches,
+            ff.flat_bwd_mega.launches) == n0
+    for ref, got in zip(res[0][0], res[1][0]):
+        assert got["nonfinite"] == 0.0
+        for k in ("loss", "loss_ct", "loss_rc"):
+            assert abs(got[k] - ref[k]) <= 1e-4 * abs(ref[k]), (k, got, ref)
+    for a, b in zip(res[1][1], res[0][1]):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_mae_fused_step_on_card_runs_k1_k2_and_matches_plain(dev, monkeypatch):
+    """One MAE train step on the fused bf16 UNet (reduced widths, 64^2,
+    FUSED_MIN_HW patched to 32: down1, down2, up2 and up1 fused) on the
+    card: K1 8 and K2 8 launches; its loss within 2e-2 relative and its BN
+    running stats within 5e-2 of the unfused model's step from the same
+    weights and mask (chip_smoke.py's bf16 margins)."""
+    from cmx_torch.models.unet import UNet
+    from cmx_torch.ops.masking import random_patch_mask
+    from cmx_torch.ssl.reconstruction import make_mae_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    g = torch.Generator(device=dev).manual_seed(4)
+    imgs = torch.randn((2, 64, 64), generator=g, device=dev)
+    active = random_patch_mask(g, 2, 64, 16, 0.5)
+    out = {}
+    for fused in (True, False):
+        model = UNet(out_classes=1, widths=(8, 16, 32, 64), bottleneck=128,
+                     dtype=torch.bfloat16, fused=fused)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        task, _ = make_mae_task(model)
+        tx = make_optimizer("sgd", 1e-2, named_params=model.named_parameters())
+        state = TrainState.create(model=model, tx=tx)
+        n0 = (ff.flat_conv3x3_mask_stats.launches, ff.flat_bwd_mega.launches)
+        m = make_train_step(task, tx)(state, imgs, {"active": active})
+        torch.cuda.synchronize()
+        n1 = (ff.flat_conv3x3_mask_stats.launches, ff.flat_bwd_mega.launches)
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == ((8, 8) if fused else (0, 0))
+        out[fused] = (float(m["loss"]), float(m["nonfinite"]),
+                      dict(model.named_buffers()))
+    assert out[True][1] == 0.0
+    assert abs(out[True][0] - out[False][0]) <= 2e-2 * abs(out[False][0])
+    for n, b in out[False][2].items():
+        assert float((out[True][2][n] - b).abs().max()) <= 5e-2, n

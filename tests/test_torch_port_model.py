@@ -325,10 +325,9 @@ def test_build_task_spark_and_gates():
     assert not model.encoder.bottleneck.fused
     assert not model.decoder.up1.double_conv.fused
     assert sum(p.numel() for p in model.parameters()) == 31_048_321
-    for name in ("genesis", "mae", "cmunet"):
-        cfg.task.name = name
-        with pytest.raises(NotImplementedError):
-            build_task(cfg, torch.bfloat16, device="cpu")
+    cfg.task.name = "genesis"  # the one task not ported yet
+    with pytest.raises(NotImplementedError, match="ROADMAP: Genesis"):
+        build_task(cfg, torch.bfloat16, device="cpu")
 
 
 def test_cuda_entry_points_raise_without_a_card():
