@@ -132,11 +132,38 @@ down2 and up1, SGD lr 1e-2 momentum 0.9, mask 0.5, 256^2, bf16):
      per-step calls times its steps (K1 also for the validation forwards);
      then FT-CLI again from the CM-UNet encoder.npz: the paper's pipeline,
      CM-UNet then fine-tune, with its test Dice.
+Model Genesis (PRESETS["genesis"] with model.fused_conv=True: the
+UNet(out_classes=1) through K1/K2 at down1, down2 and up1, SGD lr 1e-2
+momentum 0.9, the distortion chain of cmx_torch.ops.genesis on the card,
+256^2, bf16) and the decoder variants:
+  G1. at batch GENESIS_BATCH (the preset's): one step recorded (K1 6, K2 6)
+     and every call replayed as in phase 1; counters zeroed, SPARK_STEPS
+     steps with launches equal to the recorded calls, a two-step profile,
+     peak memory; genesis_batch alone at the step's batch by CUDA events and
+     by the profiler, with its share of the step, and once under
+     torch.cuda.set_sync_debug_mode("error") (fails on any host
+     synchronisation); the unfused step timed and profiled the same way;
+     the fused model against the plain one at batch 2 from the same weights
+     and injected draws (phase 3's margins);
+  G-CLI. `cmx_torch.cli.pretrain.main` with --task genesis_tuned --preset
+     model.fused_conv=True for one epoch on the CLI phase's corpus at batch
+     CM_CLI_BATCH: K1 launches G1's per-step calls times (steps +
+     validation batches), K2 times the steps; log.jsonl finite;
+     encoder.npz reloaded into a fresh UNet bit for bit;
+  DV. at batch DV_BATCH, each with a recorded step whose calls must equal
+     the gate's prediction, SPARK_STEPS steps with launches equal to them,
+     a two-step profile (with K3, its loss tail checked as in phase 2), and
+     the fused model against the plain one at batch 2: SparK with
+     task.full_unet=False (LightDecoder, decoder_width 768: K1 4, K2 4, K3
+     1 + 1); SparKModel(fused=True, fused_decoder=True), built directly (K1
+     6, K2 6, K3 1 + 1); the fine-tune UNet with up_sample_mode="bilinear"
+     (K1 4, K2 4: up1's concat 128 + 64 fails the gate).
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON (the SparK/MoCo paths' rows, as before, K1's and K2's launches
-counting MAE1's 8-step run too; K3's row sums its forward and backward,
-which it also lists under "parts"), the card's name and power limit
-(nvidia-smi), and {"ok": true, "device": {...}} last.
+counting MAE1's, G1's and DV's 8-step runs too, K3's DV's; K3's row sums
+its forward and backward, which it also lists under "parts"), the card's
+name and power limit (nvidia-smi), and {"ok": true, "device": {...}}
+last.
 """
 
 from __future__ import annotations
@@ -844,21 +871,45 @@ def step_phase(state, step, imgs, per_step: dict, steps: int, label: str,
     return launches, step_ms
 
 
-def unfused_phase(batch: int, steps: int) -> float:
-    """The same step with model.fused_conv=False task.pallas_loss=False: no
-    kernel of the port runs (checked), cuDNN convs and eager BN instead."""
-    import torch
-
+def unfused_phase(cfg, steps: int, label: str, imgs=None):
+    """The step of `cfg`, whose model.fused_conv (and task.pallas_loss) is
+    False: no kernel of the port runs (checked), cuDNN convs and eager BN
+    instead; on `imgs` if given, else on make_step's. Timed and profiled.
+    Returns (state, step, step_ms)."""
     wrappers = [k[0] for k in kernels().values()]
     before = [fn.launches for fn in wrappers]
-    state, step, imgs = make_step(make_cfg(batch, fused=False))
-    step_ms, _ = run_steps(state, step, imgs, steps, "unfused")
+    state, step, own = make_step(cfg)
+    imgs = own if imgs is None else imgs
+    step_ms, _ = run_steps(state, step, imgs, steps, label)
     if [fn.launches for fn in wrappers] != before:
-        fail("the unfused step launched a kernel of the port")
-    profile_steps(lambda: step(state, imgs), 2, step_ms, "unfused")
-    del state, step, imgs
-    torch.cuda.empty_cache()
-    return step_ms
+        fail(f"the {label} step launched a kernel of the port")
+    profile_steps(lambda: step(state, imgs), 2, step_ms, label)
+    return state, step, step_ms
+
+
+def compare_plain(label: str, fused_model, plain_model, loss_of) -> None:
+    """A fused model against the plain one from the same weights: the plain
+    model takes the fused one's state; `loss_of(model, fused)` gives the
+    loss on fixed inputs and draws (train mode); the loss within 2e-2
+    relative and every BN running stat within 5e-2 after the forward
+    (phase 3's margins)."""
+    plain_model.load_state_dict(fused_model.state_dict())
+    losses = {}
+    for name, model in (("fused", fused_model), ("plain", plain_model)):
+        model.train()
+        loss = loss_of(model, name == "fused")
+        loss.backward()
+        losses[name] = float(loss.detach())
+    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
+    bs_f = dict(fused_model.named_buffers())
+    d_bs = max(float((b - bs_f[n]).abs().max())
+               for n, b in plain_model.named_buffers())
+    print(f"{label} reference: loss fused={losses['fused']:.6f} plain="
+          f"{losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); BN "
+          f"running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
+    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2
+            and d_bs <= 5e-2):
+        fail(f"the fused {label} model disagrees with the plain one")
 
 
 def reference_phase(label: str):
@@ -872,36 +923,22 @@ def reference_phase(label: str):
     from cmx_torch.ops.masking import spark_active_mask
     from cmx_torch.ssl.spark import make_spark_task
 
-    cfg = make_cfg(2)
-    _, fused_model = build_task(cfg, torch.bfloat16, "cuda")
-    cfg_plain = make_cfg(2, fused=False)
-    _, plain_model = build_task(cfg_plain, torch.bfloat16, "cuda")
-    plain_model.load_state_dict(fused_model.state_dict())
+    _, fused_model = build_task(make_cfg(2), torch.bfloat16, "cuda")
+    _, plain_model = build_task(make_cfg(2, fused=False), torch.bfloat16,
+                                "cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
     imgs = torch.randn((2, 256, 256), generator=gen, device="cuda")
     draws = {"crop": _crop_window_params(gen, 2, 256, 256, 256, (0.67, 1.0),
                                          (3 / 4, 4 / 3)),
              "flip": torch.tensor([True, False], device="cuda"),
              "active": spark_active_mask(gen, 2, 16, 0.6)}
-    losses = {}
-    for name, model, cfg_i in (("fused", fused_model, cfg),
-                               ("plain", plain_model, cfg_plain)):
+
+    def loss_of(model, fused):
         task, _ = make_spark_task(model, augment=True, input_size=256,
-                                  pallas_loss=cfg_i.task.pallas_loss)
-        model.train()
-        loss, _ = task.loss_fn(model, imgs, gen, draws)
-        loss.backward()
-        losses[name] = float(loss.detach())
-    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
-    bs_f = dict(fused_model.named_buffers())
-    d_bs = max(float((b - bs_f[n]).abs().max())
-               for n, b in plain_model.named_buffers())
-    print(f"reference ({label}): loss fused={losses['fused']:.6f} "
-          f"plain={losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); "
-          f"BN running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
-    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2 and d_bs <= 5e-2):
-        fail(f"the fused ({label}) step disagrees with the plain-PyTorch "
-             f"model")
+                                  pallas_loss=fused)
+        return task.loss_fn(model, imgs, gen, draws)[0]
+
+    compare_plain(f"SparK ({label})", fused_model, plain_model, loss_of)
 
 
 SPARK_KERNELS = ("flat_conv3x3_mask_stats", "flat_bwd_mega",
@@ -1225,11 +1262,13 @@ FT_CLI_BATCH = 8    # FT-CLI: --batches
 FT_CLI_RATIO = 0.3  # FT-CLI: data.ratio (29 fine-tune and 20 test images)
 
 
-def make_ft_step(fused: bool, batch: int):
+def make_ft_step(fused: bool, batch: int,
+                 up_sample_mode: str = "conv_transpose"):
     """(state, step, (imgs, masks)): the fine-tune step as
-    cmx_torch.cli.finetune builds it (UNet out_classes 2, bf16, weights from
-    seed 0, the supervised task with augmentation, Adam lr FT_LR) on the
-    card, and a batch of random images and one-hot masks from a seed."""
+    cmx_torch.cli.finetune builds it (UNet out_classes 2 with
+    `up_sample_mode`, bf16, weights from seed 0, the supervised task with
+    augmentation, Adam lr FT_LR) on the card, and a batch of random images
+    and one-hot masks from a seed."""
     import torch
 
     from cmx_torch.models.unet import UNet
@@ -1238,7 +1277,8 @@ def make_ft_step(fused: bool, batch: int):
     from cmx_torch.train.supervised import make_supervised_task
     from cmx_torch.train.trainer import make_train_step
 
-    model = UNet(out_classes=2, dtype=torch.bfloat16, fused=fused)
+    model = UNet(out_classes=2, dtype=torch.bfloat16, fused=fused,
+                 up_sample_mode=up_sample_mode)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model = model.to("cuda")
     task, _ = make_supervised_task(model, augment=True)
@@ -1311,31 +1351,16 @@ def finetune_phase(batch: int, steps: int, iters: int):
           f"{batch}, {CLI_SIZE}^2, bf16, Adam)", flush=True)
 
     # the fused model against the plain one from the same weights and draws
+    from cmx_torch.train.supervised import make_supervised_task
+
     fused, _, _ = make_ft_step(True, 2)
     plain = state
-    plain.model.load_state_dict(fused.model.state_dict())
     gen = torch.Generator(device="cuda").manual_seed(3)
     draws = finetune_draws(gen, 2, CLI_SIZE, CLI_SIZE)
     sub = tuple(t[:2] for t in batch_t)
-    from cmx_torch.train.supervised import make_supervised_task
-
-    losses = {}
-    for name, st in (("fused", fused), ("plain", plain)):
-        task, _ = make_supervised_task(st.model, augment=True)
-        st.model.train()
-        loss, _ = task.loss_fn(st.model, sub, gen, draws)
-        loss.backward()
-        losses[name] = float(loss.detach())
-    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
-    bs_f = dict(fused.model.named_buffers())
-    d_bs = max(float((b - bs_f[n]).abs().max())
-               for n, b in plain.model.named_buffers())
-    print(f"finetune reference: loss fused={losses['fused']:.6f} plain="
-          f"{losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); BN "
-          f"running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
-    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2
-            and d_bs <= 5e-2):
-        fail("the fused fine-tune model disagrees with the plain one")
+    compare_plain("finetune", fused.model, plain.model, lambda m, _: (
+        make_supervised_task(m, augment=True)[0].loss_fn(m, sub, gen,
+                                                         draws)[0]))
     del fused, plain, state, step
     torch.cuda.empty_cache()
 
@@ -1436,7 +1461,7 @@ def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
 
 
 CM_BATCH = 64      # CM1's batch (the preset's 256 does not fit one card)
-CM_CLI_BATCH = 16  # CM-CLI's batch (both tasks): 4 steps an epoch
+CM_CLI_BATCH = 16  # CM-CLI's and G-CLI's batch: 4 steps an epoch
 MAE_BATCH = 64     # the mae preset's batch
 
 
@@ -1576,39 +1601,18 @@ def mae_phase(batch: int, steps: int, iters: int):
     del state, step
     torch.cuda.empty_cache()
 
-    wrappers = [k[0] for k in kernels().values()]
-    before = [fn.launches for fn in wrappers]
-    plain, pstep, _ = make_step(make_mae_cfg(batch, False))
-    plain_ms, _ = run_steps(plain, pstep, imgs, steps, "mae unfused")
-    if [fn.launches for fn in wrappers] != before:
-        fail("the unfused MAE step launched a kernel of the port")
-    profile_steps(lambda: pstep(plain, imgs), 2, plain_ms, "mae unfused")
+    plain, pstep, plain_ms = unfused_phase(make_mae_cfg(batch, False), steps,
+                                           "mae unfused", imgs)
     print(f"mae fused step_ms={step_ms:.3f} unfused step_ms={plain_ms:.3f} "
           f"(fused/unfused {step_ms / plain_ms:.3f}; batch {batch}, "
           f"{imgs.shape[-1]}^2, bf16, SGD)", flush=True)
 
     # the fused model against the plain one from the same weights and mask
     fused, _, _ = make_step(make_mae_cfg(2, True))
-    plain.model.load_state_dict(fused.model.state_dict())
     gen = torch.Generator(device="cuda").manual_seed(3)
     draws = {"active": random_patch_mask(gen, 2, imgs.shape[-1], 16, 0.5)}
-    losses = {}
-    for name, st in (("fused", fused), ("plain", plain)):
-        task, _ = make_mae_task(st.model)
-        st.model.train()
-        loss, _ = task.loss_fn(st.model, imgs[:2], gen, draws)
-        loss.backward()
-        losses[name] = float(loss.detach())
-    d_loss = abs(losses["fused"] - losses["plain"]) / abs(losses["plain"])
-    bs_f = dict(fused.model.named_buffers())
-    d_bs = max(float((b - bs_f[n]).abs().max())
-               for n, b in plain.model.named_buffers())
-    print(f"mae reference: loss fused={losses['fused']:.6f} plain="
-          f"{losses['plain']:.6f} rel diff={d_loss:.3e} (tol 2e-2); BN "
-          f"running stats max abs diff={d_bs:.3e} (tol 5e-2)", flush=True)
-    if not (math.isfinite(losses["fused"]) and d_loss <= 2e-2
-            and d_bs <= 5e-2):
-        fail("the fused MAE model disagrees with the plain one")
+    compare_plain("mae", fused.model, plain.model, lambda m, _: (
+        make_mae_task(m)[0].loss_fn(m, imgs[:2], gen, draws)[0]))
     del fused, plain, pstep, imgs
     torch.cuda.empty_cache()
     return dict(per_step), launches, step_ms, plain_ms, kern
@@ -1700,6 +1704,296 @@ def cm_cli_phase(work: Path, data_dir: str, mae_per_step: dict):
     return secs, encoder
 
 
+GENESIS_BATCH = 64  # the genesis preset's batch
+DV_BATCH = 32       # DV's batch: the SparK phase's and FT1's
+
+
+def make_genesis_cfg(batch: int, fused: bool):
+    """PRESETS["genesis"] at full width: UNet(out_classes=1), 256^2, bf16,
+    SGD lr 1e-2 momentum 0.9, the reference's distortion rates;
+    model.fused_conv=`fused`."""
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.config.presets import PRESETS
+
+    cfg = PRESETS["genesis"](Config())
+    apply_overrides(cfg, [f"train.batch_size={batch}", "data.image_size=256",
+                          f"model.fused_conv={fused}"])
+    return cfg
+
+
+def genesis_phase(batch: int, steps: int, iters: int):
+    """Phase G1 (see the module docstring). Returns (the per-step calls,
+    the launches of the timed run, the K1/K2 replay sums, its numbers)."""
+    import torch
+
+    from cmx_torch.ops import fused_conv_flat as ff
+    from cmx_torch.ops.genesis import genesis_batch, genesis_draws
+    from cmx_torch.ssl.reconstruction import make_genesis_task
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = make_genesis_cfg(batch, True)
+    state, step, imgs = make_step(cfg)
+    calls, loss = record_step(state, step, imgs)
+    per_step = collections.Counter(name for name, _ in calls)
+    print(f"G1 recorded step: kernel calls per step {dict(per_step)} "
+          f"(predicted K1 6, K2 6: down1, down2 and up1); loss {loss:.6f}",
+          flush=True)
+    if dict(per_step) != {n: 6 for n in FLAT_KERNELS}:
+        fail(f"the Genesis step called {dict(per_step)}, expected K1 6 and "
+             f"K2 6")
+    print("G1 replay of every K1/K2 call of the recorded step:", flush=True)
+    kern = kernel_phase(calls, iters)
+    del calls
+    torch.cuda.empty_cache()
+    launches, step_ms = step_phase(state, step, imgs, per_step, steps,
+                                   "genesis fused", ff.FlatDoubleConv)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the distortion chain alone, at the step's batch
+    t = cfg.task
+    rates = dict(flip_rate=t.genesis_flip_rate,
+                 local_rate=t.genesis_local_rate,
+                 nonlinear_rate=t.genesis_nonlinear_rate,
+                 paint_rate=t.genesis_paint_rate,
+                 inpaint_rate=t.genesis_inpaint_rate)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def chain():
+        return genesis_batch(imgs, gen, **rates)
+
+    chain_ms = time_ms(chain, iters)
+    chain_dev, chain_ops = device_ms(chain)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, y = chain()
+    except RuntimeError as e:
+        fail(f"genesis_batch synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (bool(torch.isfinite(x).all()) and x.shape == y.shape
+            == imgs.shape):
+        fail("genesis_batch gave a non-finite or misshapen pair")
+    print(f"G1 chain: genesis_batch at batch {batch}, 256^2: {chain_ms:.3f} "
+          f"ms a call (CUDA events, {iters} calls), {chain_dev:.3f} ms of "
+          f"device time in {chain_ops} device operations (profiler); "
+          f"{100 * chain_ms / step_ms:.1f}% of the fused step's "
+          f"{step_ms:.3f} ms; no host synchronisation under "
+          f"set_sync_debug_mode('error'); peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated over set-up, the recorded and the timed "
+          f"steps)", flush=True)
+    del state, step, x, y
+    torch.cuda.empty_cache()
+
+    plain, pstep, plain_ms = unfused_phase(make_genesis_cfg(batch, False),
+                                           steps, "genesis unfused", imgs)
+    print(f"genesis fused step_ms={step_ms:.3f} unfused step_ms="
+          f"{plain_ms:.3f} (fused/unfused {step_ms / plain_ms:.3f}; batch "
+          f"{batch}, 256^2, bf16, SGD)", flush=True)
+
+    fused, _, _ = make_step(make_genesis_cfg(2, True))
+    draws = genesis_draws(gen, 2, 256, 256)
+    compare_plain("genesis", fused.model, plain.model, lambda m, _: (
+        make_genesis_task(m, **rates)[0].loss_fn(m, imgs[:2], None,
+                                                 draws)[0]))
+    del fused, plain, pstep, imgs
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"G1 phase took {secs:.1f} s", flush=True)
+    return dict(per_step), launches, kern, {
+        "step_ms": step_ms, "plain_ms": plain_ms, "chain_ms": chain_ms,
+        "chain_device_ms": chain_dev, "peak_gib": peak}
+
+
+def genesis_cli_phase(work: Path, data_dir: str, per_step: dict) -> float:
+    """Phase G-CLI (see the module docstring). Returns its seconds."""
+    import contextlib
+
+    import torch
+
+    from cmx_torch.ckpt.checkpoint import load_encoder
+    from cmx_torch.cli.pretrain import main as pretrain_main
+    from cmx_torch.models.unet import UNet
+
+    t0 = time.perf_counter()
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = pretrain_main([
+            "--task", "genesis_tuned", "--preset", "data.synthetic=True",
+            f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={data_dir}",
+            f"data.image_size={CLI_SIZE}",
+            f"train.batch_size={CM_CLI_BATCH}", "train.patience=5",
+            "train.epochs=1", "model.fused_conv=True",
+            f"train.ckpt_dir={work}/genesis_ckpt"])
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    steps, val = out["state"].step, out["val_batches"]
+    # validation forwards run K1 too (train-mode BN, as cmx's)
+    expect = {n: per_step.get(n, 0) * (
+        steps + (val if n == "flat_conv3x3_mask_stats" else 0))
+        for n in wrappers}
+    rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
+                       "".join(tee.lines))
+    print(f"G-CLI --task genesis_tuned --preset model.fused_conv=True: "
+          f"{steps} training steps, {val} validation batches; epoch img/s "
+          + ", ".join(f"epoch {e}: {r} img/s in {t} s" for e, t, r in rates)
+          + f"; launches {launches} (expected {expect})", flush=True)
+    if launches != expect or not steps or not val:
+        fail("the Genesis CLI run did not launch the expected kernels")
+    with open(Path(out["ckpt_dir"]) / "log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    if [r["epoch"] for r in log] != [0] or not all(
+            math.isfinite(r[k]) for r in log for k in ("loss", "val_loss")):
+        fail("the Genesis CLI's log.jsonl lacks its epoch or holds a "
+             "non-finite loss")
+    fresh = load_encoder(out["encoder"], UNet(dtype=torch.bfloat16).to("cuda"))
+    final = out["state"].model.encoder.state_dict()
+    same = all(torch.equal(t, final[n])
+               for n, t in fresh.encoder.state_dict().items())
+    print(f"G-CLI export: loss {log[0]['loss']:.6f} val_loss "
+          f"{log[0]['val_loss']:.6f}; encoder.npz reloaded into a fresh UNet: "
+          f"encoder equal bit for bit {same}", flush=True)
+    if not same:
+        fail("the Genesis CLI's encoder.npz does not reload to the run's "
+             "encoder")
+    del out, fresh, final
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"G-CLI phase took {secs:.1f} s", flush=True)
+    return secs
+
+
+def dv_steps(label: str, state, step, batch_t, expect: dict, steps: int):
+    """A decoder variant's recorded step, its calls per kernel equal to
+    `expect` (the gate's prediction), then step_phase: `steps` steps with
+    every kernel's launches equal to those calls times the steps, and a
+    two-step profile. Returns (step_ms, the launches)."""
+    from cmx_torch.ops import fused_conv_flat as ff
+
+    calls, loss = record_step(state, step, batch_t)
+    per_step = dict(collections.Counter(name for name, _ in calls))
+    print(f"DV {label} recorded step: kernel calls per step {per_step} "
+          f"(predicted {expect}); loss {loss:.6f}", flush=True)
+    if per_step != expect:
+        fail(f"the {label} step called {per_step}, expected {expect}")
+    del calls
+    launches, step_ms = step_phase(state, step, batch_t, per_step, steps,
+                                   f"DV {label}", ff.FlatDoubleConv)
+    return step_ms, launches
+
+
+def make_spark_variant(batch: int, fused: bool, fused_decoder: bool):
+    """(state, step, imgs): the SparK step of phase 2 (LAMB lr 2e-4 wd 0.04
+    clip 5; K3 with `fused`) on SparKModel(fused=`fused`,
+    fused_decoder=`fused_decoder`), built directly, as no config field
+    reaches fused_decoder in cmx either; weights from the config's seed."""
+    import torch
+
+    from cmx_torch.ssl.spark import SparKModel, make_spark_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    cfg = make_cfg(batch, fused)
+    model = SparKModel(mask_ratio=cfg.task.mask_ratio, dtype=torch.bfloat16,
+                       fused=fused, fused_decoder=fused_decoder)
+    model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
+    model = model.to("cuda")
+    task, _ = make_spark_task(model, input_size=256, pallas_loss=fused)
+    o = cfg.optim
+    tx = make_optimizer(o.name, o.lr, o.weight_decay, clip_norm=o.clip_norm,
+                        named_params=model.named_parameters())
+    state = TrainState.create(model=model, tx=tx, seed=cfg.train.seed)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    imgs = torch.randn((batch, 256, 256), generator=gen, device="cuda")
+    return state, make_train_step(task, tx), imgs
+
+
+def decoder_variants_phase(batch: int, steps: int):
+    """Phase DV (see the module docstring). Returns ({variant: step_ms},
+    the launches of the three timed runs, summed)."""
+    import torch
+
+    from cmx_torch.ops.augment import _crop_window_params, finetune_draws
+    from cmx_torch.ops.masking import spark_active_mask
+    from cmx_torch.ssl.spark import make_spark_task
+    from cmx_torch.train.supervised import make_supervised_task
+
+    t0 = time.perf_counter()
+    k1, k2 = FLAT_KERNELS
+    k3 = {"spark_loss_pallas": 1, "spark_loss_bwd": 1}
+    total = collections.Counter()
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    spark_draws = {"crop": _crop_window_params(gen, 2, 256, 256, 256,
+                                               (0.67, 1.0), (3 / 4, 4 / 3)),
+                   "flip": torch.tensor([True, False], device="cuda"),
+                   "active": spark_active_mask(gen, 2, 16, 0.6)}
+
+    def spark_loss_of(m, pallas_loss):
+        task, _ = make_spark_task(m, input_size=256, pallas_loss=pallas_loss)
+        return task.loss_fn(m, imgs[:2], None, spark_draws)[0]
+
+    # SparK with LightDecoder: the CLI's spark task with task.full_unet=False
+    from cmx_torch.config.config import apply_overrides
+
+    cfgs = [apply_overrides(make_cfg(n, f), ["task.full_unet=False"])
+            for n, f in ((batch, True), (2, True), (2, False))]
+    state, step, imgs = make_step(cfgs[0])
+    width = state.model.densify_proj0.kernel.shape[0]
+    print(f"DV spark_light: SparKModel(full_unet=False), decoder_width "
+          f"{width}, params {sum(p.numel() for p in state.model.parameters())}",
+          flush=True)
+    times["spark_light"], launches = dv_steps(
+        "spark_light", state, step, imgs, {k1: 4, k2: 4, **k3}, steps)
+    total.update(launches)
+    del state, step
+    fused, _, _ = make_step(cfgs[1])
+    plain, _, _ = make_step(cfgs[2])
+    compare_plain("DV spark_light", fused.model, plain.model, spark_loss_of)
+    del fused, plain
+    torch.cuda.empty_cache()
+
+    # SparK with the fused UNet decoder: up1 joins down1 and down2
+    state, step, imgs = make_spark_variant(batch, True, True)
+    times["spark_fused_decoder"], launches = dv_steps(
+        "spark_fused_decoder", state, step, imgs, {k1: 6, k2: 6, **k3}, steps)
+    total.update(launches)
+    del state, step
+    fused, _, _ = make_spark_variant(2, True, True)
+    plain, _, _ = make_spark_variant(2, False, False)
+    compare_plain("DV spark_fused_decoder", fused.model, plain.model,
+                  spark_loss_of)
+    del fused, plain, imgs
+    torch.cuda.empty_cache()
+
+    # the fine-tune UNet in bilinear mode: up1's concat 128 + 64 > 128
+    state, step, batch_t = make_ft_step(True, batch, "bilinear")
+    times["unet_bilinear"], launches = dv_steps(
+        "unet_bilinear", state, step, batch_t, {k1: 4, k2: 4}, steps)
+    total.update(launches)
+    del state, step
+    fused, _, _ = make_ft_step(True, 2, "bilinear")
+    plain, _, _ = make_ft_step(False, 2, "bilinear")
+    draws = finetune_draws(gen, 2, CLI_SIZE, CLI_SIZE)
+    sub = tuple(t[:2] for t in batch_t)
+    compare_plain("DV unet_bilinear", fused.model, plain.model, lambda m, _: (
+        make_supervised_task(m, augment=True)[0].loss_fn(m, sub, None,
+                                                         draws)[0]))
+    del fused, plain, batch_t
+    torch.cuda.empty_cache()
+    print(f"DV (batch {batch}, 256^2, bf16): " + ", ".join(
+        f"{k} step_ms={v:.3f} img_per_s={batch / v * 1e3:.2f}"
+        for k, v in times.items())
+        + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return times, dict(total)
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cm1-batch", type=int, default=None,
@@ -1778,7 +2072,9 @@ def main(argv=None) -> int:
                                          ff.FlatDoubleConv)
     del state, step, imgs
     torch.cuda.empty_cache()
-    unfused_ms = unfused_phase(BATCH, SPARK_STEPS)
+    unfused_ms = unfused_phase(make_cfg(BATCH, fused=False), SPARK_STEPS,
+                               "unfused")[2]
+    torch.cuda.empty_cache()
     print(f"fused step_ms={step_ms:.3f} unfused step_ms={unfused_ms:.3f} "
           f"(fused/unfused {step_ms / unfused_ms:.3f})", flush=True)
     reference_phase("flat")
@@ -1850,6 +2146,26 @@ def main(argv=None) -> int:
         _, cm_encoder = cm_cli_phase(Path(work), data_dir, mae_per_step)
         finetune_cli_phase(Path(work), cm_encoder, data_dir, ft_per_step)
 
+        g_per_step, g_launches, g_kern, g1 = genesis_phase(
+            GENESIS_BATCH, SPARK_STEPS, ITERS)
+        for name in FLAT_KERNELS:
+            k = g_kern[name]
+            bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
+            print(f"G1 {name}: {g_per_step[name]} calls a step, "
+                  f"{k['ms']:.4f} ms a step = {k['ms'] / bms:.2f}x its bound "
+                  f"({bms:.4f} ms, {by}), plain {k['plain_ms']:.4f}, library "
+                  f"{k['library_ms']:.4f} ({k['ms'] / k['library_ms']:.2f}x), "
+                  f"max_abs_err {k['max_abs_err']:.3e}; by call (kernel_ms / "
+                  f"library_ms): {show(k['calls'])}", flush=True)
+        print(f"G1 (batch {GENESIS_BATCH}): fused step_ms={g1['step_ms']:.3f} "
+              f"img_per_s={GENESIS_BATCH / g1['step_ms'] * 1e3:.2f}, unfused "
+              f"{g1['plain_ms']:.3f}; chain {g1['chain_ms']:.3f} ms "
+              f"({100 * g1['chain_ms'] / g1['step_ms']:.1f}% of the step), "
+              f"{g1['chain_device_ms']:.3f} device ms; peak "
+              f"{g1['peak_gib']:.2f} GiB", flush=True)
+        genesis_cli_phase(Path(work), data_dir, g_per_step)
+        _, dv_launches = decoder_variants_phase(DV_BATCH, SPARK_STEPS)
+
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))
                for _, rows, cols, _, _ in crops]
@@ -1861,8 +2177,9 @@ def main(argv=None) -> int:
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    # K1/K2: the SparK run's launches and MAE1's
+    # K1-K3: the SparK run's launches, MAE1's, G1's and DV's
     launches = {**{n: spark_launches[n] + mae_launches.get(n, 0)
+                   + g_launches.get(n, 0) + dv_launches.get(n, 0)
                    for n in SPARK_KERNELS},
                 **{n: moco_launches[n] for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
@@ -1925,7 +2242,8 @@ def main(argv=None) -> int:
     print(f"per-step kernel times (ms, sum over one step's launches: SparK "
           f"batch {BATCH} for K1-K3 (FUSED_IMPL flat) and K6-K8 (nhwc), MoCo "
           f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "
-          f"launches: {SPARK_STEPS} SparK steps of each impl / {MOCO_STEPS} "
+          f"launches: {SPARK_STEPS} SparK steps of each impl, K1-K3 also "
+          f"MAE1's, G1's and DV's {SPARK_STEPS} steps each / {MOCO_STEPS} "
           f"MoCo steps / the K5 phase); SparK step_ms flat={step_ms:.3f} "
           f"nhwc={nhwc_ms:.3f}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -24,9 +24,11 @@ port keeps flax's names on its parameters and buffers
 conv0.kernel`), so the map (`to_flax` / `from_flax`) is mechanical. Layouts
 that differ:
   * Conv kernels: flax HWIO <-> torch OIHW;
-  * ConvTranspose kernels: flax (kh,kw,I,O) <-> torch (I,O,kh,kw) with a
-    spatial flip (lax.conv_transpose correlates with the kernel as given;
-    torch applies the conv-gradient kernel);
+  * ConvTranspose kernels (2x2 and LightDecoder's 4x4, and
+    PixelShuffleUpsample2x's, which keeps ConvTranspose's parameters):
+    flax (kh,kw,I,O) <-> torch (I,O,kh,kw) with a spatial flip
+    (lax.conv_transpose correlates with the kernel as given; torch applies
+    the conv-gradient kernel);
   * mask tokens: flax (1,1,1,C) <-> torch (1,C,1,1).
 Dense kernels (the CM-UNet necks) are kept in flax's (in, out) layout in
 the port and cross as they are.
@@ -50,17 +52,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from cmx_torch.models.blocks import Conv, ConvTranspose
 from cmx_torch.train.state import TrainState
 
 
 def _kind(module: nn.Module, name: str) -> str:
+    """The layout a parameter crosses in: a `kernel` takes its owner's
+    declared `kernel_layout` (Conv "conv"; ConvTranspose and its subclasses,
+    PixelShuffleUpsample2x and every LightDecoder `up`, "conv_transpose"),
+    so no module's kernel crosses by its class name alone."""
     owner_name, _, leaf = name.rpartition(".")
     owner = module.get_submodule(owner_name) if owner_name else module
-    if leaf == "kernel" and isinstance(owner, Conv):
-        return "conv"
-    if leaf == "kernel" and isinstance(owner, ConvTranspose):
-        return "conv_transpose"
+    if leaf == "kernel":
+        return getattr(owner, "kernel_layout", "plain")
     if leaf.startswith("mask_token"):
         return "token"
     return "plain"

@@ -68,10 +68,6 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     if args.corpus_seed is not None:
         cfg.data.corpus_seed = args.corpus_seed
     print(display(cfg))
-    if cfg.model.up_sample_mode != "conv_transpose":
-        raise NotImplementedError(
-            f"model.up_sample_mode={cfg.model.up_sample_mode!r} is not ported "
-            "yet (ROADMAP: decoder variants)")
 
     from cmx_torch.utils.seeding import seed_everything
 
@@ -94,7 +90,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
 
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
     model = UNet(out_classes=cfg.model.out_classes, dtype=dtype,
-                 fused=cfg.model.fused_conv)
+                 fused=cfg.model.fused_conv,
+                 up_sample_mode=cfg.model.up_sample_mode)
     model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
     model = model.to(dev)
     if args.pretrained:

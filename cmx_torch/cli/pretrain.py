@@ -4,14 +4,14 @@
     python -m cmx_torch.cli.pretrain --device cpu --task spark \
         data.synthetic=True train.epochs=2 ...
 
-`build_task` for task.name "spark", "moco", "mae" and "cmunet" (genesis
-raises, naming its ROADMAP item), then `main`: the config printed, the
-corpus loaded (the native loader, else numpy/PIL, as in cmx), the seeded
-sampler, the schedules, the optimizer, resume from the newest checkpoint,
-the epoch loop with the device-resident feed, validation with patience,
-`log.jsonl`, the checkpoints, and the `encoder.npz` / `model.npz` exports
-with their stamp. Everything runs on the card unless `--device cpu` is
-given.
+`build_task` for task.name "spark", "moco", "genesis", "mae" and "cmunet"
+(`model.remat` raises, naming its ROADMAP item), then `main`: the config
+printed, the corpus loaded (the native loader, else numpy/PIL, as in cmx),
+the seeded sampler, the schedules, the optimizer, resume from the newest
+checkpoint, the epoch loop with the device-resident feed, validation with
+patience, `log.jsonl`, the checkpoints, and the `encoder.npz` /
+`model.npz` exports with their stamp. Everything runs on the card unless
+`--device cpu` is given.
 
 Differences from cmx's CLI, each for a reason:
   * `train.scan`: cmx compiles segments of steps into one `lax.scan`
@@ -48,9 +48,6 @@ from cmx_torch.config.config import Config, apply_overrides, display, to_dict
 from cmx_torch.parallel.dist import (InfiniteBatchSampler,
                                      initialize_distributed, process_info)
 from cmx_torch.train.trainer import Task, extra_buffers
-
-_WAITING = {"genesis": "Genesis"}
-
 
 def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                ) -> Tuple[Task, torch.nn.Module]:
@@ -89,15 +86,24 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                                  crop_method=t.crop_method,
                                  crop_impl=t.crop_impl)
         return task, model
-    if t.name not in ("spark", "mae"):
-        item = _WAITING.get(t.name)
-        if item is None:
-            raise ValueError(f"unknown pretrain task {t.name!r}")
-        raise NotImplementedError(
-            f"pretrain task {t.name!r} is not ported yet (ROADMAP: {item})")
+    if t.name not in ("spark", "genesis", "mae"):
+        raise ValueError(f"unknown pretrain task {t.name!r}")
     if cfg.model.remat:
         raise NotImplementedError("model.remat is not ported yet "
                                   "(ROADMAP: remat)")
+    if t.name == "genesis":
+        from cmx_torch.models.unet import UNet
+        from cmx_torch.ssl.reconstruction import make_genesis_task
+
+        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv)
+        model.reset_parameters(gen)
+        task, _ = make_genesis_task(
+            model.to(dev), flip_rate=t.genesis_flip_rate,
+            local_rate=t.genesis_local_rate,
+            nonlinear_rate=t.genesis_nonlinear_rate,
+            paint_rate=t.genesis_paint_rate,
+            inpaint_rate=t.genesis_inpaint_rate)
+        return task, model
     if t.name == "mae":
         from cmx_torch.models.unet import UNet
         from cmx_torch.ssl.reconstruction import make_mae_task
@@ -210,9 +216,10 @@ def _corpus_stamp_info(cfg: Config):
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--task", default=None,
-                   help="mae|mae_tuned|moco|spark|cmunet (genesis is not "
-                        "ported yet; mae_tuned requires --preset: it is a "
-                        "preset key that resolves task.name back to mae)")
+                   help="genesis|genesis_tuned|mae|mae_tuned|moco|spark|"
+                        "cmunet (the *_tuned names require --preset: each "
+                        "is a preset key that resolves task.name back to "
+                        "genesis or mae)")
     p.add_argument("--preset", action="store_true",
                    help="start from the reference recipe for --task "
                         "(cmx_torch.config.presets) before applying overrides")

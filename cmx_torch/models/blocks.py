@@ -29,46 +29,81 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 class Conv(nn.Module):
     """flax nn.Conv(features, (k, k), padding SAME) with fp32 parameters,
-    computed in `dtype` (input, kernel and bias cast, as flax does)."""
+    computed in `dtype` (input, kernel and bias cast, as flax does);
+    `bias=False` is flax's use_bias=False (no `bias` parameter)."""
+
+    kernel_layout = "conv"  # flax HWIO <-> torch OIHW (ckpt.checkpoint)
 
     def __init__(self, cin: int, cout: int, k: int = 3,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(cout, cin, k, k))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         cout, cin, k, _ = self.kernel.shape
         with torch.no_grad():
             _lecun_normal_(self.kernel, cin * k * k, gen)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.shape[-1]
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), bias,
+                        padding=k // 2)
+
+
+class ConvTranspose(nn.Module):
+    """flax nn.ConvTranspose(features, (k, k), strides (2, 2), padding
+    SAME) for even k (2: the UNet's up, 4: LightDecoder's); the kernel is
+    stored in torch's (Cin, Cout, k, k) layout, the flax kernel spatially
+    flipped (see ckpt.checkpoint), and SAME is torch's padding (k - 2) / 2
+    on it."""
+
+    kernel_layout = "conv_transpose"
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.bfloat16,
+                 k: int = 2):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(cin, cout, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        cin, _, k, _ = self.kernel.shape
+        with torch.no_grad():
+            _lecun_normal_(self.kernel, k * k * cin, gen)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel.shape[-1]
-        return F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype),
-                        self.bias.to(self.dtype), padding=k // 2)
+        return F.conv_transpose2d(x.to(self.dtype), self.kernel.to(self.dtype),
+                                  self.bias.to(self.dtype), stride=2,
+                                  padding=(k - 2) // 2)
 
 
-class ConvTranspose(nn.Module):
-    """flax nn.ConvTranspose(features, (2, 2), strides (2, 2)); the kernel is
-    stored in torch's (Cin, Cout, 2, 2) layout (the flax kernel spatially
-    flipped, see ckpt.checkpoint)."""
+class PixelShuffleUpsample2x(ConvTranspose):
+    """cmx's ConvTranspose(2x2, stride 2) as a 1x1 product plus
+    depth-to-space: out[o, 2i+a, 2j+b] = sum_c x[c, i, j] * kernel[a, b, c,
+    o] on the flipped flax kernel, accumulated in fp32, plus the bias, cast
+    to `dtype`. The parameters are ConvTranspose's, in its layout, so they
+    cross checkpoints as an UpBlock's `up` does. No caller, in cmx or here."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(cin, cout, 2, 2))
-        self.bias = nn.Parameter(torch.zeros(cout))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        with torch.no_grad():
-            _lecun_normal_(self.kernel, 4 * self.kernel.shape[0], gen)
-            self.bias.zero_()
+        super().__init__(cin, cout, dtype, k=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x.to(self.dtype), self.kernel.to(self.dtype),
-                                  self.bias.to(self.dtype), stride=2)
+        b, cin, h, w = x.shape
+        cout = self.kernel.shape[1]
+        # torch (Cin, O, a, b) -> cmx's (Cin, (a, b, O)) product matrix
+        k = self.kernel.to(self.dtype).permute(0, 2, 3, 1).reshape(
+            cin, 4 * cout)
+        y = torch.einsum("bchw,ck->bhwk", x.to(self.dtype).float(), k.float())
+        y = y.reshape(b, h, w, 2, 2, cout).permute(0, 5, 1, 3, 2, 4).reshape(
+            b, cout, 2 * h, 2 * w)
+        return (y + self.bias[:, None, None]).to(self.dtype)
 
 
 class Dense(nn.Module):
@@ -241,19 +276,59 @@ class DownBlock(nn.Module):
         return max_pool_2x2(skip), skip
 
 
+def bilinear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of (B, C, H, W) with align_corners=True, cmx's
+    arithmetic: corner-aligned positions i * (n - 1) / (2n - 1) rounded to
+    fp32 once (as cmx's fp32 ops give them run op by op; its jitted model
+    folds them differently, by up to an ulp), rows then columns in fp32,
+    cast back to x's dtype."""
+    _, _, h, w = x.shape
+
+    def axis_weights(n_in: int):
+        n_out = 2 * n_in
+        pos = (torch.arange(n_out, dtype=torch.float64, device=x.device)
+               * (n_in - 1) / max(n_out - 1, 1)).float()
+        lo = torch.floor(pos).long()
+        hi = torch.clamp(lo + 1, max=n_in - 1)
+        return lo, hi, pos - lo.float()
+
+    li, hi, wi = axis_weights(h)
+    lj, hj, wj = axis_weights(w)
+    x32 = x.float()
+    wi = wi[:, None]
+    # index_select: its backward is one index_add, where advanced
+    # indexing's sorts its indices first
+    top = (x32.index_select(2, li) * (1 - wi)
+           + x32.index_select(2, hi) * wi)
+    out = top.index_select(3, lj) * (1 - wj) + top.index_select(3, hj) * wj
+    return out.to(x.dtype)
+
+
 class UpBlock(nn.Module):
-    """ConvTranspose 2x2 s2, concat skip, DoubleConv; `fused` passes to the
-    DoubleConv, whose gate decides (cmx/models/blocks.py:395-440). (cmx's
-    bilinear up-sample mode is not ported yet: ROADMAP, decoder variants.)"""
+    """Upsample (ConvTranspose 2x2 s2 to `features`, or bilinear x2 with no
+    parameter), concat skip, DoubleConv of cin + features (bilinear) or
+    2 * features channels; `fused` passes to the DoubleConv, whose gate
+    decides (cmx/models/blocks.py:395-440)."""
 
     def __init__(self, cin: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False,
+                 up_sample_mode: str = "conv_transpose"):
         super().__init__()
-        self.up = ConvTranspose(cin, features, dtype)
-        self.double_conv = DoubleConv(2 * features, features, dtype, fused)
+        if up_sample_mode not in ("conv_transpose", "bilinear"):
+            raise ValueError(
+                "up_sample_mode must be 'conv_transpose' or 'bilinear', got "
+                f"{up_sample_mode!r}")
+        self.up_sample_mode = up_sample_mode
+        if up_sample_mode == "conv_transpose":
+            self.up = ConvTranspose(cin, features, dtype)
+            cin = features
+        self.double_conv = DoubleConv(cin + features, features, dtype, fused)
 
     def forward(self, x, skip):
-        x = self.up(x)
+        if self.up_sample_mode == "conv_transpose":
+            x = self.up(x)
+        else:
+            x = bilinear_upsample_2x(x)
         x = torch.cat([x, skip.to(x.dtype)], dim=1)
         return self.double_conv(x)
 

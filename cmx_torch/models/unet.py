@@ -4,7 +4,8 @@ Channel plan 1 -> 64 -> 128 -> 256 -> 512, bottleneck 1024, mirrored
 decoder with skip concat and a 1x1 head. Inputs are (B,H,W) or (B,1,H,W);
 activations are NCHW; logits come out in fp32, NCHW (cmx's are NHWC).
 `UNet` is the fine-tune model (encoder + decoder, `fused` passed to both, as
-in cmx); UNetEncoderGAP is MoCo's encoder: the encoder and a global average
+in cmx; the decoder's `up_sample_mode` "conv_transpose" or "bilinear");
+UNetEncoderGAP is MoCo's encoder: the encoder and a global average
 pool to a 1024-d embedding.
 """
 
@@ -67,18 +68,20 @@ class UNetEncoder(nn.Module):
 class UNetDecoder(nn.Module):
     """4 UpBlocks (up4 .. up1) with skip concat + 1x1 head; fp32 logits.
     `fused` passes to every UpBlock's DoubleConv, whose gate decides (at
-    256^2 only up1's, Cin 2*64 = 128, passes)."""
+    256^2 only up1's passes, Cin 2*64 = 128, and in bilinear mode none:
+    up1's concat is 128 + 64 = 192 > FUSED_MAX_CIN)."""
 
     def __init__(self, out_classes: int = 2,
                  widths: Sequence[int] = ENCODER_WIDTHS,
                  in_channels: int = BOTTLENECK_WIDTH,
-                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False,
+                 up_sample_mode: str = "conv_transpose"):
         super().__init__()
         cin = in_channels
         self.n_levels = len(widths)
         for lvl in range(self.n_levels, 0, -1):
-            self.add_module(f"up{lvl}",
-                            UpBlock(cin, widths[lvl - 1], dtype, fused))
+            self.add_module(f"up{lvl}", UpBlock(cin, widths[lvl - 1], dtype,
+                                                fused, up_sample_mode))
             cin = widths[lvl - 1]
         self.head = Conv(widths[0], out_classes, 1, dtype)
 
@@ -93,16 +96,18 @@ class UNet(nn.Module):
     (UNetDecoder), so that to_flax / from_flax give cmx's tree
     (encoder/down1/..., decoder/up4/up, decoder/head). (B,H,W) or (B,1,H,W)
     images -> (B, out_classes, H, W) fp32 logits. `fused` passes to both
-    halves, as cmx/models/unet.py:148-179 does."""
+    halves and `up_sample_mode` to the decoder, as cmx/models/unet.py:148-179
+    does."""
 
     def __init__(self, out_classes: int = 2,
                  widths: Sequence[int] = ENCODER_WIDTHS,
                  bottleneck: int = BOTTLENECK_WIDTH,
-                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False,
+                 up_sample_mode: str = "conv_transpose"):
         super().__init__()
         self.encoder = UNetEncoder(widths, bottleneck, dtype, fused)
         self.decoder = UNetDecoder(out_classes, widths, bottleneck, dtype,
-                                   fused)
+                                   fused, up_sample_mode)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random weights from `gen` (flax's initializers)."""

@@ -1,12 +1,16 @@
-"""MAE pretraining on the shared UNet (port of
-cmx/ssl/reconstruction.py:67-100); Model Genesis waits (ROADMAP: Genesis).
+"""Model Genesis and MAE pretraining on the shared UNet (port of
+cmx/ssl/reconstruction.py).
 
-MAE (Transformation_based/utils.py:196-207): input = image * active patch
-mask (ratio 0.5, patch 16; per-sample masks, `shared_mask` restores the
-reference's mask[0] broadcast), target = the image; full-image MSE as the
-reference (Genesis_Chest_CT.py:122-125), or the masked pixels only with
-`masked_loss_only`. The model is `UNet(out_classes=1, fused=...)`: with
-`fused`, down1, down2 and up1 run K1/K2, as the fine-tune step does.
+Both train UNet(out_classes=1, fused=...) (with `fused`, down1, down2 and
+up1 run K1/K2, as the fine-tune step does) with the full-image MSE of the
+reference (Genesis_Chest_CT.py:122-125):
+  * Model Genesis (generate_pair, Transformation_based/utils.py:209-253):
+    input = the distortion chain of cmx_torch.ops.genesis on the device,
+    target = the (possibly flipped) original;
+  * MAE (utils.py:196-207): input = image * active patch mask (ratio 0.5,
+    patch 16; per-sample masks, `shared_mask` restores the reference's
+    mask[0] broadcast), target = the image; or the masked pixels only with
+    `masked_loss_only`.
 """
 
 from __future__ import annotations
@@ -16,15 +20,37 @@ from typing import Optional, Tuple
 import torch
 
 from cmx_torch.models.unet import UNet
+from cmx_torch.ops.genesis import genesis_batch
 from cmx_torch.ops.masking import random_patch_mask
 from cmx_torch.train.trainer import Task, TaskAux
 
 
-def make_genesis_task(*args, **kwargs):
-    """Model Genesis's distortion chain (cmx/ops/genesis.py) is not ported
-    yet."""
-    raise NotImplementedError(
-        "make_genesis_task is not ported yet (ROADMAP: Genesis)")
+def make_genesis_task(model: Optional[UNet] = None, *,
+                      flip_rate: float = 0.4, local_rate: float = 0.5,
+                      nonlinear_rate: float = 0.9, paint_rate: float = 0.9,
+                      inpaint_rate: float = 0.2) -> Tuple[Task, UNet]:
+    """The Genesis task: loss_fn(model, imgs, gen, draws, extra) -> (loss,
+    TaskAux). `draws` may hold the distorted pair ("x", "y") outright, or
+    any of genesis_draws' raw draws; the rest are drawn from `gen`. Rates
+    default to Transformation_based/config.py:24-31."""
+    model = model or UNet(out_classes=1)
+    rates = dict(flip_rate=flip_rate, local_rate=local_rate,
+                 nonlinear_rate=nonlinear_rate, paint_rate=paint_rate,
+                 inpaint_rate=inpaint_rate)
+
+    def loss_fn(model: UNet, imgs: torch.Tensor,
+                gen: Optional[torch.Generator],
+                draws: Optional[dict] = None, extra=None):
+        draws = draws or {}
+        if "x" in draws:
+            x, y = draws["x"].to(imgs.device), draws["y"].to(imgs.device)
+        else:
+            x, y = genesis_batch(imgs, gen, draws, **rates)
+        pred = model(x)
+        loss = torch.square(pred[:, 0].float() - y.float()).mean()
+        return loss, TaskAux(metrics={"mse": loss.detach()})
+
+    return Task(name="genesis", loss_fn=loss_fn), model
 
 
 def make_mae_task(model: Optional[UNet] = None, *, mask_ratio: float = 0.5,

@@ -1,9 +1,11 @@
 """SparK sparse masked-convolution pretraining (port of cmx/ssl/spark.py:45-201).
 
-Masked encoder + densify (masked BN, learned mask tokens) + full-UNet
-decoder, the per-patch-normalized L2 loss on masked patches, and the task
-that ties them to the augmentation and the mask draw. Sparsity is a dense
-conv plus an active-mask multiply, as in cmx.
+Masked encoder + densify (masked BN, learned mask tokens) + decoder: the
+full UNet decoder with skips (`full_unet=True`, the paper's), or
+LightDecoder after per-scale projections to its widths; the
+per-patch-normalized L2 loss on masked patches, and the task that ties them
+to the augmentation and the mask draw. Sparsity is a dense conv plus an
+active-mask multiply, as in cmx.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from cmx_torch.models.blocks import MaskedBatchNorm, reset_parameters
+from cmx_torch.models.blocks import Conv, MaskedBatchNorm, reset_parameters
+from cmx_torch.models.decoders import LightDecoder
 from cmx_torch.models.unet import (BOTTLENECK_WIDTH, DOWNSAMPLE_RATIO,
                                    ENCODER_WIDTHS, UNetDecoder, UNetEncoder)
 from cmx_torch.ops.augment import spark_pretrain_aug
@@ -23,31 +26,42 @@ from cmx_torch.train.trainer import Task, TaskAux
 
 class SparKModel(nn.Module):
     """imgs (B,H,W), active_grid (B,f,f) with 1 = keep -> reconstruction
-    (B,H,W) fp32. Only the full-UNet decoder (`full_unet=True`) is ported;
-    cmx's LightDecoder waits (ROADMAP). `fused` applies to the encoder; the
-    decoder stays unfused, as with cmx's default fused_decoder=False."""
+    (B,H,W) fp32. `full_unet=True`: the UNet decoder on the densified
+    features; False: each densified feature through `densify_proj{i}` (1x1
+    at the bottleneck, else 3x3) to decoder_width / 2^i, then LightDecoder.
+    `fused` applies to the encoder, and to the UNet decoder only with
+    `fused_decoder` (cmx's default False), as cmx/ssl/spark.py:125 does;
+    LightDecoder is never fused."""
 
     def __init__(self, mask_ratio: float = 0.6, full_unet: bool = True,
+                 decoder_width: int = 768,
                  widths: Sequence[int] = ENCODER_WIDTHS,
                  bottleneck_width: int = BOTTLENECK_WIDTH,
-                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False,
+                 fused_decoder: bool = False):
         super().__init__()
-        if not full_unet:
-            raise NotImplementedError(
-                "SparKModel(full_unet=False) needs LightDecoder, not ported "
-                "yet (ROADMAP: LightDecoder)")
         self.mask_ratio = mask_ratio
+        self.full_unet = full_unet
         self.widths = tuple(widths)
         self.bottleneck_width = bottleneck_width
         self.dtype = dtype
         self.encoder = UNetEncoder(widths, bottleneck_width, dtype, fused)
         feat_widths = [bottleneck_width] + list(reversed(widths))
+        d_width = decoder_width
         for i, cw in enumerate(feat_widths):
             self.add_module(f"densify_norm{i}", MaskedBatchNorm(cw, dtype))
             self.register_parameter(f"mask_token{i}",
                                     nn.Parameter(torch.zeros(1, cw, 1, 1)))
+            if not full_unet:
+                self.add_module(f"densify_proj{i}",
+                                Conv(cw, d_width, 1 if i == 0 else 3, dtype))
+                d_width //= 2
         self.n_feats = len(feat_widths)
-        self.decoder = UNetDecoder(1, widths, bottleneck_width, dtype)
+        if full_unet:
+            self.decoder = UNetDecoder(1, widths, bottleneck_width, dtype,
+                                       fused and fused_decoder)
+        else:
+            self.decoder = LightDecoder(DOWNSAMPLE_RATIO, decoder_width, dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random weights from `gen` (flax's initializers: lecun-normal
@@ -69,9 +83,15 @@ class SparKModel(nn.Module):
             m = cur[:, None]  # (B,1,s,s)
             f = getattr(self, f"densify_norm{i}")(f, m)
             token = getattr(self, f"mask_token{i}").to(f.dtype)
-            to_dec.append(torch.where(m > 0, f, token))
+            f = torch.where(m > 0, f, token)
+            if not self.full_unet:
+                f = getattr(self, f"densify_proj{i}")(f)
+            to_dec.append(f)
             cur = upsample_mask(cur, 2)
-        rec = self.decoder(to_dec[0], list(reversed(to_dec[1:])))
+        if self.full_unet:
+            rec = self.decoder(to_dec[0], list(reversed(to_dec[1:])))
+        else:
+            rec = self.decoder(to_dec)
         return rec[:, 0]
 
 

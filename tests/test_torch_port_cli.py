@@ -435,8 +435,8 @@ def test_cli_refuses_tensorboard_and_unported_tasks(tmp_path):
 
     with pytest.raises(NotImplementedError, match="TensorBoard"):
         _run(tmp_path, "tb", "spark", ["train.tensorboard=True"])
-    with pytest.raises(NotImplementedError, match="ROADMAP: Genesis"):
-        main(["--device", "cpu", "--task", "genesis",
+    with pytest.raises(NotImplementedError, match="ROADMAP: remat"):
+        main(["--device", "cpu", "--task", "genesis", "model.remat=e1",
               f"data.data_dir={tmp_path / 'data'}"])
 
 

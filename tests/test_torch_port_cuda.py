@@ -20,7 +20,11 @@ plain version's op for op; the products sum in another order); K5 in fp32
 rel 1e-6 (Triton fuses x*scale+bias into one FMA, the plain version rounds
 twice); K3's forward loss rel 1e-5 and its backward one ulp of rec's dtype
 at the largest |drec| in bf16, eight in fp32: the patch sums and the
-cross-block sum run in another order than the plain version's.
+cross-block sum run in another order than the plain version's. The Genesis
+chain on the card against the CPU with the same draws: bit for bit but for
+the fit remap (1e-4 of the image's span), and no host sync; the decoder
+variants fused against unfused at the bf16 margins (loss 2e-2, BN stats
+5e-2).
 """
 
 import numpy as np
@@ -679,3 +683,116 @@ def test_mae_fused_step_on_card_runs_k1_k2_and_matches_plain(dev, monkeypatch):
     assert abs(out[True][0] - out[False][0]) <= 2e-2 * abs(out[False][0])
     for n, b in out[False][2].items():
         assert float((out[True][2][n] - b).abs().max()) <= 5e-2, n
+
+
+def _cpu_genesis_draws(b, h, seed, exact_shuffle=False):
+    from cmx_torch.ops.genesis import genesis_draws
+
+    return genesis_draws(torch.Generator().manual_seed(seed), b, h, h,
+                         exact_shuffle=exact_shuffle)
+
+
+def test_genesis_chain_on_card_matches_cpu(dev):
+    """The Genesis chain on the card against itself on the CPU with the
+    same injected draws (batch 6, 64^2): the flips, both shuffles, the
+    exact remap and both paintings bit for bit; the fit remap (a batched
+    10x10 solve on the card) within 1e-4 of each image's span, and so the
+    whole pair: y bit for bit, x within 1e-4 of the span."""
+    from cmx_torch.ops import genesis as tg
+
+    imgs = torch.randn((6, 64, 64), generator=torch.Generator().manual_seed(1))
+    d = _cpu_genesis_draws(6, 64, 2, exact_shuffle=True)
+    dc = {k: v.to(dev) for k, v in d.items()}
+    x, xc = imgs, imgs.to(dev)
+    span = (imgs.amax((1, 2)) - imgs.amin((1, 2)))[:, None, None]
+    for fn, kw in ((tg.local_pixel_shuffling, dict(prob=1.0)),
+                   (tg.local_pixel_shuffling, dict(prob=1.0, exact=True)),
+                   (tg.nonlinear_transformation, dict(prob=1.0, exact=True)),
+                   (tg.image_in_painting, {}), (tg.image_out_painting, {})):
+        assert torch.equal(fn(xc, dc, **kw).cpu(), fn(x, d, **kw)), fn
+    fit = tg.nonlinear_transformation(xc, dc, prob=1.0).cpu()
+    assert bool(((fit - tg.nonlinear_transformation(x, d, prob=1.0)).abs()
+                 <= 1e-4 * span).all())
+    (px, py), (cx, cy) = tg.genesis_batch(xc, None, dc), tg.genesis_batch(
+        x, None, d)
+    assert torch.equal(py.cpu(), cy)
+    assert bool(((px.cpu() - cx).abs() <= 1e-4 * span).all())
+
+
+def test_genesis_batch_makes_no_host_sync(dev):
+    """genesis_batch at batch 8, 256^2, its draws from a generator on the
+    card, under torch.cuda.set_sync_debug_mode("error"): no host
+    synchronisation anywhere in the chain (no .item(), no tensor-shift
+    roll, the solve without its error check)."""
+    from cmx_torch.ops.genesis import genesis_batch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    imgs = torch.randn((8, 256, 256), generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, y = genesis_batch(imgs, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(x).all()) and x.shape == y.shape == imgs.shape
+
+
+def _variant(kind, fused):
+    """A small bf16 model of decoder variant `kind` ("spark_light",
+    "spark_fused_decoder", "unet_bilinear") with seeded weights, and its
+    loss on (imgs, active)."""
+    from cmx_torch.models.unet import UNet
+    from cmx_torch.ssl.spark import SparKModel, spark_loss
+
+    kw = dict(widths=(8, 16, 32, 64), dtype=torch.bfloat16, fused=fused)
+    if kind == "unet_bilinear":
+        model = UNet(1, bottleneck=128, up_sample_mode="bilinear", **kw)
+
+        def loss(m, imgs, active):
+            return torch.square(m(imgs * active)[:, 0] - imgs).mean()
+    else:
+        model = SparKModel(bottleneck_width=128, decoder_width=32,
+                           full_unet=kind != "spark_light",
+                           fused_decoder=kind == "spark_fused_decoder", **kw)
+
+        def loss(m, imgs, active):
+            grid = active[:, ::16, ::16]
+            return spark_loss(m(imgs, grid), imgs, grid)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model, loss
+
+
+@pytest.mark.parametrize("kind,launches", [
+    ("spark_light", 4), ("spark_fused_decoder", 6), ("unet_bilinear", 4)])
+def test_decoder_variants_fused_on_card_match_plain(dev, monkeypatch, kind,
+                                                    launches):
+    """Each decoder variant, fused in bf16 on the card (reduced widths,
+    64^2, FUSED_MIN_HW patched to 32 and FUSED_MAX_CIN to 16, the cut the
+    full-width gate makes: the bilinear up1's concat 16 + 8 stays
+    unfused, and of the fused decoder only up1, 2 * 8, passes), one
+    forward and backward: K1 and K2 `launches` each (the encoder's down1
+    and down2; with the fused decoder up1 too);
+    the loss within 2e-2 relative and the BN running stats within 5e-2 of
+    the unfused model's from the same weights and mask."""
+    from cmx_torch.ops.masking import random_patch_mask
+
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    monkeypatch.setattr(fc, "FUSED_MAX_CIN", 16)
+    g = torch.Generator(device=dev).manual_seed(5)
+    imgs = torch.randn((2, 64, 64), generator=g, device=dev)
+    active = random_patch_mask(g, 2, 64, 16, 0.5)
+    out = {}
+    for fused in (True, False):
+        model, loss_fn = _variant(kind, fused)
+        model = model.to(dev).train()
+        n0 = (ff.flat_conv3x3_mask_stats.launches, ff.flat_bwd_mega.launches)
+        loss = loss_fn(model, imgs, active)
+        loss.backward()
+        torch.cuda.synchronize()
+        n1 = (ff.flat_conv3x3_mask_stats.launches, ff.flat_bwd_mega.launches)
+        want = launches if fused else 0
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (want, want)
+        out[fused] = (float(loss.detach()), dict(model.named_buffers()))
+    assert abs(out[True][0] - out[False][0]) <= 2e-2 * abs(out[False][0])
+    for n, b in out[False][1].items():
+        assert float((out[True][1][n] - b).abs().max()) <= 5e-2, n

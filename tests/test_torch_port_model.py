@@ -325,8 +325,8 @@ def test_build_task_spark_and_gates():
     assert not model.encoder.bottleneck.fused
     assert not model.decoder.up1.double_conv.fused
     assert sum(p.numel() for p in model.parameters()) == 31_048_321
-    cfg.task.name = "genesis"  # the one task not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP: Genesis"):
+    cfg.model.remat = "e1"  # the next option not ported yet
+    with pytest.raises(NotImplementedError, match="ROADMAP: remat"):
         build_task(cfg, torch.bfloat16, device="cpu")
 
 
