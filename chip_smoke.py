@@ -158,12 +158,38 @@ momentum 0.9, the distortion chain of cmx_torch.ops.genesis on the card,
      1 + 1); SparKModel(fused=True, fused_decoder=True), built directly (K1
      6, K2 6, K3 1 + 1); the fine-tune UNet with up_sample_mode="bilinear"
      (K1 4, K2 4: up1's concat 128 + 64 fails the gate).
+Selective rematerialization (model.remat) at bench.py's headline batch,
+and the evaluate entry point (both on the CLI phase's corpus):
+  RM. SparK (phase 2's step: flat fused, K3, LAMB) at RM_BATCH (128),
+     256^2, bf16, with model.remat="" and with RM_LEVELS (e1,e2,d1,d2),
+     from the same weights, images and step draws (`rm_pair`): each a
+     recorded step whose calls must equal the prediction (K1 4, K2 4, K3
+     1 + 1 without remat; K1 8 with it: down1 and down2 recomputed, SparK's
+     up1/up2 unfused), SPARK_STEPS steps with launches checked, step time,
+     img/s, peak memory, a two-step profile; the run without remat also
+     replays every K1/K2/K3 call as in phase 1 (the batch-128 times). The
+     remat run's first loss and every BN running statistic after its first
+     step equal the run's without remat bit for bit, its grad norm within
+     2e-2, its peak lower. The same for MAE1's model (PRESETS["mae"],
+     fused; K1 6, K2 6 without remat, K1 12, K2 6 with: down1, down2 and
+     up1 recomputed). A run without remat that does not fit at 128 is
+     printed as the finding and both run at 64;
+  RM-CLI. `cmx_torch.cli.pretrain.main` with --task mae_tuned --preset
+     model.fused_conv=True model.remat=e1,e2,d1,d2 train.tensorboard=True,
+     one epoch at batch CM_CLI_BATCH (`rm_cli_phase`): K1 = 12 x steps + 6
+     x validation batches (validation recomputes nothing), K2 = 6 x steps;
+     encoder.npz bit for bit; the CLI's TensorBoard line;
+  EV. `cmx_torch.cli.evaluate.main` with the CLI phase's encoder.npz,
+     --probe and --vis (`ev_phase`): finite metrics, probe accuracies in
+     [0, 1], the visualization file, no kernel launched, its seconds;
+     apis.inference_model on 4 images of 300^2: (4, 256, 256, 2)
+     probabilities summing to 1 within 1e-5.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON (the SparK/MoCo paths' rows, as before, K1's and K2's launches
-counting MAE1's, G1's and DV's 8-step runs too, K3's DV's; K3's row sums
-its forward and backward, which it also lists under "parts"), the card's
-name and power limit (nvidia-smi), and {"ok": true, "device": {...}}
-last.
+counting MAE1's, G1's, DV's and RM's 8-step runs too, K3's DV's and RM's;
+K3's row sums its forward and backward, which it also lists under "parts"),
+the card's name and power limit (nvidia-smi), and {"ok": true, "device":
+{...}} last.
 """
 
 from __future__ import annotations
@@ -1806,8 +1832,15 @@ def genesis_phase(batch: int, steps: int, iters: int):
         "chain_device_ms": chain_dev, "peak_gib": peak}
 
 
-def genesis_cli_phase(work: Path, data_dir: str, per_step: dict) -> float:
-    """Phase G-CLI (see the module docstring). Returns its seconds."""
+def one_epoch_cli(label: str, work: Path, data_dir: str, task: str,
+                  args: list, per_step: dict, val_calls: dict):
+    """`cmx_torch.cli.pretrain.main --task <task> --preset` with the
+    overrides `args` for one epoch on the CLI
+    phase's corpus at batch CM_CLI_BATCH, with validation: each kernel's
+    launches equal `per_step` times the training steps plus `val_calls`
+    times the validation batches (the validation forwards run no backward);
+    log.jsonl finite; encoder.npz reloaded into a fresh UNet bit for bit.
+    Returns (its seconds, the CLI's stdout lines)."""
     import contextlib
 
     import torch
@@ -1823,48 +1856,54 @@ def genesis_cli_phase(work: Path, data_dir: str, per_step: dict) -> float:
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         out = pretrain_main([
-            "--task", "genesis_tuned", "--preset", "data.synthetic=True",
+            "--task", task, "--preset", "data.synthetic=True",
             f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={data_dir}",
             f"data.image_size={CLI_SIZE}",
             f"train.batch_size={CM_CLI_BATCH}", "train.patience=5",
-            "train.epochs=1", "model.fused_conv=True",
-            f"train.ckpt_dir={work}/genesis_ckpt"])
+            "train.epochs=1", f"train.ckpt_dir={work}/{label}_ckpt"] + args)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in wrappers.items()}
     steps, val = out["state"].step, out["val_batches"]
-    # validation forwards run K1 too (train-mode BN, as cmx's)
-    expect = {n: per_step.get(n, 0) * (
-        steps + (val if n == "flat_conv3x3_mask_stats" else 0))
-        for n in wrappers}
+    expect = {n: per_step.get(n, 0) * steps + val_calls.get(n, 0) * val
+              for n in wrappers}
     rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
                        "".join(tee.lines))
-    print(f"G-CLI --task genesis_tuned --preset model.fused_conv=True: "
-          f"{steps} training steps, {val} validation batches; epoch img/s "
+    print(f"{label} --task {task} --preset {' '.join(args)}: {steps} "
+          f"training steps, {val} validation batches; epoch img/s "
           + ", ".join(f"epoch {e}: {r} img/s in {t} s" for e, t, r in rates)
           + f"; launches {launches} (expected {expect})", flush=True)
     if launches != expect or not steps or not val:
-        fail("the Genesis CLI run did not launch the expected kernels")
+        fail(f"the {label} CLI run did not launch the expected kernels")
     with open(Path(out["ckpt_dir"]) / "log.jsonl") as f:
         log = [json.loads(line) for line in f]
     if [r["epoch"] for r in log] != [0] or not all(
             math.isfinite(r[k]) for r in log for k in ("loss", "val_loss")):
-        fail("the Genesis CLI's log.jsonl lacks its epoch or holds a "
-             "non-finite loss")
+        fail(f"the {label} CLI's log.jsonl lacks its epoch or holds a "
+             f"non-finite loss")
     fresh = load_encoder(out["encoder"], UNet(dtype=torch.bfloat16).to("cuda"))
     final = out["state"].model.encoder.state_dict()
     same = all(torch.equal(t, final[n])
                for n, t in fresh.encoder.state_dict().items())
-    print(f"G-CLI export: loss {log[0]['loss']:.6f} val_loss "
+    print(f"{label} export: loss {log[0]['loss']:.6f} val_loss "
           f"{log[0]['val_loss']:.6f}; encoder.npz reloaded into a fresh UNet: "
           f"encoder equal bit for bit {same}", flush=True)
     if not same:
-        fail("the Genesis CLI's encoder.npz does not reload to the run's "
-             "encoder")
+        fail(f"the {label} CLI's encoder.npz does not reload to the run's "
+             f"encoder")
     del out, fresh, final
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t0
-    print(f"G-CLI phase took {secs:.1f} s", flush=True)
-    return secs
+    print(f"{label} phase took {secs:.1f} s", flush=True)
+    return secs, "".join(tee.lines).splitlines()
+
+
+def genesis_cli_phase(work: Path, data_dir: str, per_step: dict) -> float:
+    """Phase G-CLI (see the module docstring). Returns its seconds."""
+    # validation forwards run K1 too (train-mode BN, as cmx's)
+    return one_epoch_cli(
+        "G-CLI", work, data_dir, "genesis_tuned", ["model.fused_conv=True"],
+        per_step,
+        {"flat_conv3x3_mask_stats": per_step["flat_conv3x3_mask_stats"]})[0]
 
 
 def dv_steps(label: str, state, step, batch_t, expect: dict, steps: int):
@@ -1992,6 +2031,204 @@ def decoder_variants_phase(batch: int, steps: int):
         + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return times, dict(total)
 
+
+RM_BATCH = 128             # bench.py's headline batch (SparK)
+RM_LEVELS = "e1,e2,d1,d2"  # model.remat of the RM runs
+
+
+def make_rm_cfg(task: str, batch: int, remat: str):
+    """Phase 2's SparK config (`task` "spark") or MAE1's fused one ("mae")
+    at `batch`, with model.remat=`remat`."""
+    cfg = make_cfg(batch) if task == "spark" else make_mae_cfg(batch, True)
+    cfg.model.remat = remat
+    return cfg
+
+
+def rm_config(label: str, cfg, expect: dict, steps: int, iters: int = 0):
+    """One RM configuration: the step of `cfg` (its weights from the
+    config's seed, make_step's images; the step draws from (seed, step)),
+    one recorded step whose calls per kernel must equal `expect`, with
+    `iters` every call replayed as in phase 1; then step_phase (`steps`
+    steps with the launches checked, step time, a two-step profile) and the
+    peak device memory over it. Returns its numbers, the recorded step's
+    loss, grad norm and BN running statistics, and the replay's sums."""
+    import torch
+
+    from cmx_torch.ops import _build
+    from cmx_torch.ops import fused_conv_flat as ff
+
+    state, step, imgs = make_step(cfg)
+    _build.recorded = []
+    try:
+        m = step(state, imgs)
+        torch.cuda.synchronize()
+        calls = _build.recorded
+    finally:
+        _build.recorded = None
+    per_step = dict(collections.Counter(name for name, _ in calls))
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    buffers = {n: b.clone() for n, b in state.model.named_buffers()}
+    print(f"RM {label} recorded step: kernel calls per step {per_step} "
+          f"(predicted {expect}); loss {loss!r} grad_norm {gnorm!r}",
+          flush=True)
+    if per_step != expect:
+        fail(f"the RM {label} step called {per_step}, expected {expect}")
+    kern = kernel_phase(calls, iters) if iters else None
+    del calls, m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches, step_ms = step_phase(state, step, imgs, per_step, steps,
+                                   f"RM {label}", ff.FlatDoubleConv)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch = imgs.shape[0]
+    print(f"RM {label}: batch {batch} step_ms={step_ms:.3f} img_per_s="
+          f"{batch / step_ms * 1e3:.2f} peak {peak:.2f} GiB "
+          f"(max_memory_allocated over the {steps} steps and the profile)",
+          flush=True)
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    return {"batch": batch, "step_ms": step_ms, "peak_gib": peak,
+            "loss": loss, "grad_norm": gnorm, "buffers": buffers,
+            "per_step": per_step, "launches": launches, "kern": kern}
+
+
+def rm_pair(task: str, expect: dict, steps: int, iters: int = 0):
+    """A task at RM_BATCH without remat and with RM_LEVELS, from the same
+    weights, images and draws: the remat run's first loss and every BN
+    running statistic after its first step equal the run's without remat
+    bit for bit, its grad norm within phase 3's 2e-2, its peak lower. A
+    run without remat that does not fit at RM_BATCH is the finding: it is
+    printed, and both run at RM_BATCH // 2. A failure of a remat run is
+    never caught. Returns {"plain": ..., "remat": ...}."""
+    import torch
+
+    batch = RM_BATCH
+    try:
+        plain = rm_config(f"{task} remat=''", make_rm_cfg(task, batch, ""),
+                          expect[""], steps, iters)
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"RM {task}: without remat, batch {batch} does not fit the "
+              f"card ({str(e).splitlines()[0]}); both configurations run "
+              f"at batch {batch // 2}", flush=True)
+        torch.cuda.empty_cache()
+        batch //= 2
+        plain = rm_config(f"{task} remat=''", make_rm_cfg(task, batch, ""),
+                          expect[""], steps, iters)
+    remat = rm_config(f"{task} remat={RM_LEVELS}",
+                      make_rm_cfg(task, batch, RM_LEVELS), expect[RM_LEVELS],
+                      steps)
+    same_bn = [n for n, b in plain["buffers"].items()
+               if not torch.equal(b, remat["buffers"][n])]
+    d_gnorm = abs(remat["grad_norm"] - plain["grad_norm"]) / plain[
+        "grad_norm"]
+    print(f"RM {task} batch {batch}: step-1 loss without remat "
+          f"{plain['loss']!r}, with {remat['loss']!r} (bit for bit "
+          f"{plain['loss'] == remat['loss']}); BN running stats bit for bit "
+          f"{not same_bn} ({len(plain['buffers'])} buffers); grad norm rel "
+          f"diff {d_gnorm:.3e} (tol 2e-2); step_ms {plain['step_ms']:.3f} -> "
+          f"{remat['step_ms']:.3f} ({remat['step_ms'] / plain['step_ms']:.3f}"
+          f"x); peak {plain['peak_gib']:.2f} -> {remat['peak_gib']:.2f} GiB",
+          flush=True)
+    if plain["loss"] != remat["loss"] or same_bn or d_gnorm > 2e-2:
+        fail(f"the RM {task} step with remat differs from the step without "
+             f"(BN stats that differ: {same_bn[:4]})")
+    if remat["peak_gib"] >= plain["peak_gib"]:
+        fail(f"remat did not lower the {task} step's peak memory")
+    for r in (plain, remat):
+        del r["buffers"]
+    return {"plain": plain, "remat": remat}
+
+
+def rm_cli_phase(work: Path, data_dir: str, mae: dict) -> float:
+    """Phase RM-CLI (see the module docstring): one_epoch_cli with --task
+    mae_tuned model.fused_conv=True model.remat=RM_LEVELS
+    train.tensorboard=True, K1/K2 per step RM's MAE remat step's, the
+    validation forwards K1 as the MAE step without remat (validation runs
+    no backward, so no recompute); the CLI's line that says whether a
+    TensorBoard writer was made. Returns its seconds."""
+    k1 = "flat_conv3x3_mask_stats"
+    secs, lines = one_epoch_cli(
+        "RM-CLI", work, data_dir, "mae_tuned",
+        ["model.fused_conv=True", f"model.remat={RM_LEVELS}",
+         "train.tensorboard=True"],
+        mae["remat"]["per_step"], {k1: mae["plain"]["per_step"][k1]})
+    tb = [line for line in lines if line.startswith("tensorboard:")]
+    print(f"RM-CLI: the CLI's TensorBoard line: {tb}", flush=True)
+    if len(tb) != 1:
+        fail("the CLI did not say whether it made a TensorBoard writer")
+    return secs
+
+
+EV_IMAGES = (4, 300)  # apis.inference_model: 4 images of 300^2 -> 256^2
+
+
+def ev_phase(encoder: str, data_dir: str) -> dict:
+    """Phase EV: `cmx_torch.cli.evaluate.main` on the card, as a user runs
+    it, with the CLI phase's encoder.npz and corpus at CLI_SIZE^2: --probe
+    (the 512-wide MLP) and --vis on the CLI phase's checkpoint dir (its
+    model.npz); its test metrics finite, the probe's accuracies in [0, 1],
+    the reconstruction file written (PNG, or .npz without matplotlib), no
+    kernel of the port launched (eval mode: the fused gate asks for
+    training, in cmx too), its seconds. Then apis.init_model from the same
+    encoder.npz and apis.inference_model on EV_IMAGES (a downscale):
+    probabilities of shape (4, 256, 256, 2), class-last, that sum to 1
+    within 1e-5. Returns its numbers."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cmx_torch.apis import inference_model, init_model
+    from cmx_torch.cli.evaluate import main as evaluate_main
+
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    ckpt = str(Path(encoder).parent)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout)):
+        metrics = evaluate_main([
+            "--encoder", encoder, "--probe", "--vis", ckpt,
+            f"data.data_dir={data_dir}", f"data.image_size={CLI_SIZE}"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    vis = metrics.get("vis_path", "")
+    numbers = {k: v for k, v in metrics.items() if k != "vis_path"}
+    print(f"EV evaluate --encoder --probe --vis: {secs:.1f} s; metrics "
+          f"{numbers}; visualization {Path(vis).suffix or 'none'} "
+          f"({'written' if vis and Path(vis).is_file() else 'missing'}); "
+          f"launches of the port's kernels {launches or 'none'}", flush=True)
+    if not all(math.isfinite(v) for v in numbers.values()):
+        fail("the evaluate CLI gave a non-finite metric")
+    if not all(0.0 <= numbers[k] <= 1.0
+               for k in ("probe_train_acc", "probe_test_acc")):
+        fail("the probe's accuracies are not in [0, 1]")
+    if not (vis and Path(vis).is_file()):
+        fail("the evaluate CLI wrote no visualization")
+    if launches:
+        fail("the evaluate CLI launched a kernel of the port")
+
+    model = init_model(encoder)
+    n, size = EV_IMAGES
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    imgs = torch.randn((n, size, size), generator=gen, device="cuda")
+    probs = inference_model(model, imgs, size=CLI_SIZE)
+    torch.cuda.synchronize()
+    infer_ms = time_ms(lambda: inference_model(model, imgs, size=CLI_SIZE),
+                       ITERS)
+    err = float(np.abs(probs.sum(-1) - 1.0).max())
+    print(f"EV apis.inference_model: {n} images of {size}^2 -> probabilities "
+          f"{probs.shape} {probs.dtype}, sum over classes within {err:.2e} "
+          f"of 1 (tol 1e-5), finite {bool(np.isfinite(probs).all())}; "
+          f"{infer_ms:.3f} ms a call (CUDA events, {ITERS} calls: resize, "
+          f"forward, softmax and the copy to the host)", flush=True)
+    if probs.shape != (n, CLI_SIZE, CLI_SIZE, 2) or err > 1e-5 \
+            or not np.isfinite(probs).all():
+        fail("apis.inference_model gave wrong probabilities")
+    del model, imgs
+    torch.cuda.empty_cache()
+    return {"secs": secs, "infer_ms": infer_ms, "vis": Path(vis).suffix}
 
 
 def main(argv=None) -> int:
@@ -2166,6 +2403,40 @@ def main(argv=None) -> int:
         genesis_cli_phase(Path(work), data_dir, g_per_step)
         _, dv_launches = decoder_variants_phase(DV_BATCH, SPARK_STEPS)
 
+        t0 = time.perf_counter()
+        k1, k2 = FLAT_KERNELS
+        k3 = {"spark_loss_pallas": 1, "spark_loss_bwd": 1}
+        rm = {"spark": rm_pair("spark", {"": {k1: 4, k2: 4, **k3},
+                                         RM_LEVELS: {k1: 8, k2: 4, **k3}},
+                               SPARK_STEPS, ITERS),
+              "mae": rm_pair("mae", {"": {k1: 6, k2: 6},
+                                     RM_LEVELS: {k1: 12, k2: 6}},
+                             SPARK_STEPS)}
+        rm_kern = rm["spark"]["plain"]["kern"]
+        for name in FLAT_KERNELS:
+            k = rm_kern[name]
+            bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
+            print(f"RM {name} (SparK batch {rm['spark']['plain']['batch']}, "
+                  f"without remat): {k['ms']:.4f} ms a step = "
+                  f"{k['ms'] / bms:.2f}x its bound ({bms:.4f} ms, {by}), "
+                  f"plain {k['plain_ms']:.4f}, library "
+                  f"{k['library_ms']:.4f} ({k['ms'] / k['library_ms']:.2f}x), "
+                  f"max_abs_err {k['max_abs_err']:.3e}; by call (kernel_ms / "
+                  f"library_ms): {show(k['calls'])}", flush=True)
+        print("RM (same call): " + "; ".join(
+            f"{task} batch {r[c]['batch']} {c} step_ms={r[c]['step_ms']:.3f} "
+            f"img_per_s={r[c]['batch'] / r[c]['step_ms'] * 1e3:.2f} peak "
+            f"{r[c]['peak_gib']:.2f} GiB" for task, r in rm.items()
+            for c in ("plain", "remat"))
+            + f"; the phases took {time.perf_counter() - t0:.1f} s",
+            flush=True)
+        rm_cli_phase(Path(work), data_dir, rm["mae"])
+        ev = ev_phase(encoder, data_dir)
+        rm_launches = collections.Counter()
+        for r in rm.values():
+            for c in ("plain", "remat"):
+                rm_launches.update(r[c]["launches"])
+
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))
                for _, rows, cols, _, _ in crops]
@@ -2177,10 +2448,10 @@ def main(argv=None) -> int:
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    # K1-K3: the SparK run's launches, MAE1's, G1's and DV's
+    # K1-K3: the SparK run's launches, MAE1's, G1's, DV's and RM's
     launches = {**{n: spark_launches[n] + mae_launches.get(n, 0)
                    + g_launches.get(n, 0) + dv_launches.get(n, 0)
-                   for n in SPARK_KERNELS},
+                   + rm_launches.get(n, 0) for n in SPARK_KERNELS},
                 **{n: moco_launches[n] for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
@@ -2243,9 +2514,9 @@ def main(argv=None) -> int:
           f"batch {BATCH} for K1-K3 (FUSED_IMPL flat) and K6-K8 (nhwc), MoCo "
           f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "
           f"launches: {SPARK_STEPS} SparK steps of each impl, K1-K3 also "
-          f"MAE1's, G1's and DV's {SPARK_STEPS} steps each / {MOCO_STEPS} "
-          f"MoCo steps / the K5 phase); SparK step_ms flat={step_ms:.3f} "
-          f"nhwc={nhwc_ms:.3f}", flush=True)
+          f"MAE1's, G1's, DV's and RM's {SPARK_STEPS} steps each / "
+          f"{MOCO_STEPS} MoCo steps / the K5 phase); SparK step_ms flat="
+          f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; EV {ev['secs']:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,14 @@
         data.synthetic=True train.epochs=2 ...
 
 `build_task` for task.name "spark", "moco", "genesis", "mae" and "cmunet"
-(`model.remat` raises, naming its ROADMAP item), then `main`: the config
-printed, the corpus loaded (the native loader, else numpy/PIL, as in cmx),
-the seeded sampler, the schedules, the optimizer, resume from the newest
-checkpoint, the epoch loop with the device-resident feed, validation with
-patience, `log.jsonl`, the checkpoints, and the `encoder.npz` /
+(`model.remat` names the blocks recomputed in the backward for spark,
+genesis and mae, and is ignored for moco and cmunet, as in cmx), then
+`main`: the config printed, the corpus loaded (the native loader, else
+numpy/PIL, as in cmx), the seeded sampler, the schedules, the optimizer,
+resume from the newest checkpoint, the epoch loop with the device-resident
+feed, validation with patience, `log.jsonl` (with `train.tensorboard` the
+same scalars under `<ckpt_dir>/tb` too, when a TensorBoard writer can be
+made), the checkpoints, and the `encoder.npz` /
 `model.npz` exports with their stamp. Everything runs on the card unless
 `--device cpu` is given.
 
@@ -23,9 +26,8 @@ Differences from cmx's CLI, each for a reason:
     stream at epoch 0); step draws are keyed by (seed, step) in both. With
     the same config, a run cut after a checkpoint and started again ends
     where an uninterrupted one does, bit for bit on the CPU.
-  * `train.tensorboard` raises (the card machine has no tensorboard
-    package; ROADMAP: TensorBoard logging); `train.profile_dir` traces one
-    epoch with torch.profiler (a Chrome trace) in place of jax.profiler.
+  * `train.profile_dir` traces one epoch with torch.profiler (a Chrome
+    trace) in place of jax.profiler.
   * `main` returns a summary of the run (the state, the loader used,
     whether the device feed ran, the steps and validation batches an epoch,
     the exported paths) besides printing it.
@@ -88,14 +90,13 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
         return task, model
     if t.name not in ("spark", "genesis", "mae"):
         raise ValueError(f"unknown pretrain task {t.name!r}")
-    if cfg.model.remat:
-        raise NotImplementedError("model.remat is not ported yet "
-                                  "(ROADMAP: remat)")
+    remat = tuple(s for s in cfg.model.remat.split(",") if s)
     if t.name == "genesis":
         from cmx_torch.models.unet import UNet
         from cmx_torch.ssl.reconstruction import make_genesis_task
 
-        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv)
+        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv,
+                     remat_levels=remat)
         model.reset_parameters(gen)
         task, _ = make_genesis_task(
             model.to(dev), flip_rate=t.genesis_flip_rate,
@@ -108,7 +109,8 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
         from cmx_torch.models.unet import UNet
         from cmx_torch.ssl.reconstruction import make_mae_task
 
-        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv)
+        model = UNet(out_classes=1, dtype=dtype, fused=cfg.model.fused_conv,
+                     remat_levels=remat)
         model.reset_parameters(gen)
         task, _ = make_mae_task(model.to(dev), mask_ratio=t.mask_ratio,
                                 patch_size=t.patch_size,
@@ -118,7 +120,8 @@ def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
     from cmx_torch.ssl.spark import SparKModel, make_spark_task
 
     model = SparKModel(mask_ratio=t.mask_ratio, full_unet=t.full_unet,
-                       dtype=dtype, fused=cfg.model.fused_conv)
+                       dtype=dtype, fused=cfg.model.fused_conv,
+                       remat_levels=remat)
     model.reset_parameters(gen)
     model = model.to(dev)
     task, _ = make_spark_task(model, augment=t.augment,
@@ -245,9 +248,6 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     if args.corpus_seed is not None:
         cfg.data.corpus_seed = args.corpus_seed
     print(display(cfg))
-    if cfg.train.tensorboard:
-        raise NotImplementedError("train.tensorboard is not ported yet "
-                                  "(ROADMAP: TensorBoard logging)")
 
     from cmx_torch.utils.seeding import seed_everything
 
@@ -318,6 +318,14 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     step_fn = make_train_step(task, tx)
     logger = MetricLogger()
     jsonl = JsonlLogger(os.path.join(ckpt_dir, "log.jsonl"))
+    tb = None
+    if cfg.train.tensorboard:
+        from cmx_torch.utils.tensorboard import TensorboardLogger
+
+        tb = TensorboardLogger(os.path.join(ckpt_dir, "tb"))
+        print("tensorboard: " + (
+            f"writing to {os.path.join(ckpt_dir, 'tb')}" if tb.writer
+            else "no writer (no tensorboard package): not logging"))
 
     # Genesis-style validation slice + early stopping (patience 50 in the
     # reference config; off by default here).
@@ -455,6 +463,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                 break
 
         jsonl.write(epoch=ep, **epoch_metrics)
+        if tb is not None:
+            tb.log_dict(epoch_metrics, ep)
         if cfg.train.save_every_epoch or ep == cfg.train.epochs - 1:
             mgr.save(state.step, state, config=to_dict(cfg))
     encoder_path = os.path.join(ckpt_dir, "encoder.npz")
@@ -469,6 +479,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         final_step=state.step,
         best_val_loss=None if best_val == float("inf") else float(best_val),
     )
+    if tb is not None:
+        tb.close()
     mgr.close()
     print("done; encoder exported to", encoder_path)
     print("stamp written to", stamp_path)
@@ -478,7 +490,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             "device_feed": corpus_dev is not None, "epochs_run": int(ep) + 1,
             "steps_per_epoch": steps_per_epoch, "val_batches": n_val_batches,
             "best_val_loss": None if best_val == float("inf") else best_val,
-            "encoder": encoder_path, "stamp": stamp_path}
+            "encoder": encoder_path, "stamp": stamp_path,
+            "tensorboard": tb is not None and tb.writer is not None}
 
 
 if __name__ == "__main__":

@@ -5,17 +5,22 @@ Activations are NCHW inside the port. Parameters keep cmx's names (a conv's
 buffers) so cmx_torch.ckpt.checkpoint maps a flax tree mechanically; conv
 kernels are stored OIHW (torch's layout) and mapped from flax's HWIO there.
 bf16 compute, fp32 parameters and statistics, as in cmx. Training mode
-(`module.train()`) is cmx's use_running_average=False.
+(`module.train()`) is cmx's use_running_average=False. `run_block` is
+cmx's `nn.remat` on a named block: its activations are recomputed in the
+backward pass instead of stored.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from cmx_torch.ops import fused_conv as fc
 
@@ -142,6 +147,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.recomputing = False  # set by run_block's recompute context
 
     def reset_parameters(self, gen: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -153,7 +159,10 @@ class MaskedBatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Running-average update with externally computed batch moments
-        (the fused DoubleConv computes them in its kernels)."""
+        (the fused DoubleConv computes them in its kernels); none while a
+        checkpointed block is recomputed."""
+        if self.recomputing:
+            return
         self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
         self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
 
@@ -331,6 +340,57 @@ class UpBlock(nn.Module):
             x = bilinear_upsample_2x(x)
         x = torch.cat([x, skip.to(x.dtype)], dim=1)
         return self.double_conv(x)
+
+
+def _bn_remat_contexts(block: nn.Module):
+    """torch.utils.checkpoint's context_fn for `block`: what flax's remat
+    does to batch_stats. The forward context snapshots the block's BN
+    running statistics before the forward moves them; the recompute context
+    puts that snapshot in place (MaskedBatchNorm shifts its moments by the
+    running mean, so the recompute must see the one the forward saw),
+    suppresses update_running, and puts the updated statistics back
+    afterwards, whether or not the recompute stopped early."""
+    bns = [m for m in block.modules() if isinstance(m, MaskedBatchNorm)]
+    snapshot = []
+
+    @contextlib.contextmanager
+    def forward():
+        snapshot[:] = [(bn.mean.clone(), bn.var.clone()) for bn in bns]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        updated = [(bn.mean.clone(), bn.var.clone()) for bn in bns]
+        with torch.no_grad():
+            for bn, (mean, var) in zip(bns, snapshot):
+                bn.mean.copy_(mean)
+                bn.var.copy_(var)
+                bn.recomputing = True
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for bn, (mean, var) in zip(bns, updated):
+                    bn.mean.copy_(mean)
+                    bn.var.copy_(var)
+                    bn.recomputing = False
+
+    return forward(), recompute()
+
+
+def run_block(block: nn.Module, remat: bool, *args):
+    """block(*args), under torch.utils.checkpoint when `remat` and a
+    backward will follow (training mode, gradients enabled): the block's
+    activations are recomputed in the backward, its BN running statistics
+    updated once (_bn_remat_contexts). Non-reentrant, as the train step
+    takes torch.autograd.grad and down1's input needs no grad; the parent
+    calls it on the block it owns, so parameter names do not change."""
+    if not (remat and block.training and torch.is_grad_enabled()):
+        return block(*args)
+    # no block draws a random number: there is no RNG state to stash
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=functools.partial(_bn_remat_contexts, block))
 
 
 def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:

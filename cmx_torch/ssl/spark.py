@@ -31,21 +31,25 @@ class SparKModel(nn.Module):
     at the bottleneck, else 3x3) to decoder_width / 2^i, then LightDecoder.
     `fused` applies to the encoder, and to the UNet decoder only with
     `fused_decoder` (cmx's default False), as cmx/ssl/spark.py:125 does;
-    LightDecoder is never fused."""
+    LightDecoder is never fused. `remat_levels` (cmx's names, see
+    cmx_torch.models.unet) passes to the encoder and the UNet decoder;
+    LightDecoder takes none, as in cmx."""
 
     def __init__(self, mask_ratio: float = 0.6, full_unet: bool = True,
                  decoder_width: int = 768,
                  widths: Sequence[int] = ENCODER_WIDTHS,
                  bottleneck_width: int = BOTTLENECK_WIDTH,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False,
-                 fused_decoder: bool = False):
+                 fused_decoder: bool = False,
+                 remat_levels: Sequence[str] = ()):
         super().__init__()
         self.mask_ratio = mask_ratio
         self.full_unet = full_unet
         self.widths = tuple(widths)
         self.bottleneck_width = bottleneck_width
         self.dtype = dtype
-        self.encoder = UNetEncoder(widths, bottleneck_width, dtype, fused)
+        self.encoder = UNetEncoder(widths, bottleneck_width, dtype, fused,
+                                   remat_levels)
         feat_widths = [bottleneck_width] + list(reversed(widths))
         d_width = decoder_width
         for i, cw in enumerate(feat_widths):
@@ -59,7 +63,8 @@ class SparKModel(nn.Module):
         self.n_feats = len(feat_widths)
         if full_unet:
             self.decoder = UNetDecoder(1, widths, bottleneck_width, dtype,
-                                       fused and fused_decoder)
+                                       fused and fused_decoder,
+                                       remat_levels=remat_levels)
         else:
             self.decoder = LightDecoder(DOWNSAMPLE_RATIO, decoder_width, dtype)
 
@@ -151,3 +156,39 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
         return loss, TaskAux(metrics={"recon": loss.detach()})
 
     return Task(name="spark", loss_fn=loss_fn), model
+
+
+def spark_reconstruct(model: SparKModel, imgs: torch.Tensor,
+                      active_grid: torch.Tensor):
+    """Vis mode (spark.py:125-129), cmx's spark_reconstruct: the model in
+    eval mode (its running statistics), the per-patch normalization undone
+    on the reconstruction (the input's patch mean and sqrt(biased var +
+    1e-6)). Returns (input, masked input, reconstruction-or-input): the
+    visible patches keep the input, the masked ones get the
+    reconstruction. The model's train/eval mode is put back."""
+    b, h, w = imgs.shape
+    p = DOWNSAMPLE_RATIO
+    fh, fw = h // p, w // p
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            rec = model(imgs, active_grid)
+    finally:
+        model.train(was_training)
+
+    def patch(x):
+        return x.reshape(b, fh, p, fw, p).permute(0, 1, 3, 2, 4).reshape(
+            b, fh * fw, p * p)
+
+    def unpatch(x):
+        return x.reshape(b, fh, fw, p, p).permute(0, 1, 3, 2, 4).reshape(
+            b, h, w)
+
+    inp_p = patch(imgs.float())
+    mean = inp_p.mean(-1, keepdim=True)
+    std = torch.sqrt(inp_p.var(-1, keepdim=True, unbiased=False) + 1e-6)
+    rec_img = unpatch(patch(rec) * std + mean)
+    active_pix = upsample_mask(active_grid, p)
+    masked = imgs * active_pix
+    return imgs, masked, torch.where(active_pix > 0, imgs, rec_img)

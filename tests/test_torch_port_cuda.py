@@ -796,3 +796,62 @@ def test_decoder_variants_fused_on_card_match_plain(dev, monkeypatch, kind,
     assert abs(out[True][0] - out[False][0]) <= 2e-2 * abs(out[False][0])
     for n, b in out[False][1].items():
         assert float((out[True][1][n] - b).abs().max()) <= 5e-2, n
+
+
+@pytest.mark.parametrize("impl,recomputed", [
+    ("flat", {"flat_conv3x3_mask_stats": 4}),
+    ("nhwc", {"conv_stem_stats": 1, "conv3x3_mask_stats": 3})])
+def test_remat_step_on_card_equals_the_step_without(dev, monkeypatch, impl,
+                                                    recomputed):
+    """One SparK train step (reduced widths, 64^2, bf16, fused, K3, LAMB;
+    FUSED_MIN_HW patched to 32: down1 and down2 fused) with
+    remat_levels e1,e2,d1,d2 and without, from the same weights, images
+    and draws: the loss and every BN running statistic bit for bit equal
+    (the recomputed K1, or K6/K7 under FUSED_IMPL="nhwc", writes the bits
+    of the first launch; the running statistics update once), the grad
+    norm within 1e-3 relative (cuDNN's backward may sum in another
+    order); the recompute launches the forward kernels of down1 and down2
+    again (`recomputed`), the backward kernels no more."""
+    from cmx_torch.ops.augment import _crop_window_params
+    from cmx_torch.ops.masking import spark_active_mask
+    from cmx_torch.ssl.spark import SparKModel, make_spark_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    monkeypatch.setattr(fc, "FUSED_IMPL", impl)
+    wrappers = {"flat_conv3x3_mask_stats": ff.flat_conv3x3_mask_stats,
+                "flat_bwd_mega": ff.flat_bwd_mega,
+                "conv_stem_stats": fc.conv_stem_stats,
+                "conv3x3_mask_stats": fc.conv3x3_mask_stats,
+                "bwd_mega": fc.bwd_mega}
+    g = torch.Generator(device=dev).manual_seed(6)
+    imgs = torch.randn((2, 64, 64), generator=g, device=dev)
+    draws = {"crop": _crop_window_params(g, 2, 64, 64, 64, (0.67, 1.0),
+                                         (3 / 4, 4 / 3)),
+             "flip": torch.tensor([True, False], device=dev),
+             "active": spark_active_mask(g, 2, 4, 0.6)}
+    out = {}
+    for levels in ((), ("e1", "e2", "d1", "d2")):
+        model = SparKModel(widths=(8, 16, 32, 64), bottleneck_width=128,
+                           fused=True, remat_levels=levels)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        task, _ = make_spark_task(model, input_size=64, pallas_loss=True)
+        tx = make_optimizer("lamb", 2e-4, 0.04, clip_norm=5.0,
+                            named_params=model.named_parameters())
+        state = TrainState.create(model=model, tx=tx)
+        n0 = {k: w.launches for k, w in wrappers.items()}
+        m = make_train_step(task, tx)(state, imgs, draws)
+        torch.cuda.synchronize()
+        out[levels] = (float(m["loss"]), float(m["grad_norm"]),
+                       {k: w.launches - n0[k] for k, w in wrappers.items()},
+                       {n: b.clone() for n, b in model.named_buffers()})
+    (l0, g0, n0, b0), (l1, g1, n1, b1) = out.values()
+    assert l1 == l0 and abs(g1 - g0) <= 1e-3 * g0
+    for n, b in b0.items():
+        assert torch.equal(b1[n], b), n
+    assert {k: n1[k] - n0[k] for k in n0} == {
+        k: recomputed.get(k, 0) for k in n0}
+    assert all(n0[k] for k in recomputed)

@@ -325,9 +325,10 @@ def test_build_task_spark_and_gates():
     assert not model.encoder.bottleneck.fused
     assert not model.decoder.up1.double_conv.fused
     assert sum(p.numel() for p in model.parameters()) == 31_048_321
-    cfg.model.remat = "e1"  # the next option not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP: remat"):
-        build_task(cfg, torch.bfloat16, device="cpu")
+    cfg.model.remat = "e1,d2"  # the names reach the blocks' parents
+    _, model = build_task(cfg, torch.bfloat16, device="cpu")
+    assert model.encoder.remat_levels == model.decoder.remat_levels \
+        == ("e1", "d2")
 
 
 def test_cuda_entry_points_raise_without_a_card():
