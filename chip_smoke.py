@@ -184,12 +184,37 @@ and the evaluate entry point (both on the CLI phase's corpus):
      [0, 1], the visualization file, no kernel launched, its seconds;
      apis.inference_model on 4 images of 300^2: (4, 256, 256, 2)
      probabilities summing to 1 within 1e-5.
+Data parallel (cmx_torch.parallel; the card machine has one card, so
+nothing past world size 1 on NCCL is claimed):
+  DP1. phase 2's step (SparK fused flat with K3, LAMB, batch BATCH, the
+     same weights and images) under a real NCCL group of one process made
+     by cmx_torch.parallel.dist from the launcher's variables: its first
+     step bit for bit the step without a group (loss, grad norm, every
+     parameter and BN buffer; both with cuDNN's deterministic algorithms),
+     the collectives counted (all-reduces a step and their bytes; the
+     gradients alone 4 bytes a parameter), launches K1 4, K2 4, K3 1 + 1 a
+     step; SPARK_STEPS steps timed beside phase 2's;
+  DP2. two spawned ranks of a gloo group on the one card
+     (`--dp-rank R --dp-out PATH`, each with a timeout), each at DP2_BATCH
+     against one process at 2 x DP2_BATCH from the same weights, images and
+     draws: launches K1 4, K2 4, K3 1 + 1 a step on each rank, losses
+     within 2e-2 and BN stats within 5e-2 (phase 3's bands), the ranks'
+     states bit for bit equal; step time per rank (gloo stages every
+     collective through the host: it shows the path runs, not its speed);
+  DP-CLI. the pretrain CLI for one epoch on the CLI phase's corpus, in this
+     process without a group and under `torchrun --standalone
+     --nproc_per_node 1` (NCCL; `--cli-run` runs the CLI's main there; the
+     launcher's variables set by hand where torchrun is missing), both with
+     cuDNN's deterministic algorithms: encoder.npz bit for bit, the same
+     losses. `python3 chip_smoke.py --dp` builds the kernels and runs the
+     DP phases alone.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON (the SparK/MoCo paths' rows, as before, K1's and K2's launches
 counting MAE1's, G1's, DV's and RM's 8-step runs too, K3's DV's and RM's;
 K3's row sums its forward and backward, which it also lists under "parts"),
 the card's name and power limit (nvidia-smi), and {"ok": true, "device":
-{...}} last.
+{...}} last. K1-K3's launches there count DP1's 8 steps and DP2's 4 on
+each rank too.
 """
 
 from __future__ import annotations
@@ -2231,11 +2256,388 @@ def ev_phase(encoder: str, data_dir: str) -> dict:
     return {"secs": secs, "infer_ms": infer_ms, "vis": Path(vis).suffix}
 
 
+# ---------------------------------------------------------------------------
+# Data parallel (cmx_torch.parallel): DP1, DP2 and DP-CLI
+# ---------------------------------------------------------------------------
+
+DP2_BATCH = 16  # DP2: each of the two ranks' batch (the one process: 32)
+DP2_STEPS = 4   # DP2: steps a rank takes (the first two are warm-up)
+DP_TIMEOUT = 600  # seconds a spawned rank or launcher run may take
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_env(world: int, rank: int, port: int) -> dict:
+    """torch's launcher variables for `rank` of `world` (every rank on
+    cuda:0: the card machine has one card)."""
+    return {"WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_launchers():
+    return {name: kernels()[name][0] for name in SPARK_KERNELS}
+
+
+def _zero_launches() -> None:
+    for fn in _flat_launchers().values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {n: fn.launches for n, fn in _flat_launchers().items()}
+
+
+def _deterministic_step(state, step, imgs):
+    """(loss, grad norm, every parameter and buffer) after one step with
+    cuDNN restricted to its deterministic algorithms (its default backward
+    algorithms may sum with atomics, so two runs of a step need not agree
+    bit for bit without it)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m = step(state, imgs)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return (m["loss"].clone(), m["grad_norm"].clone(),
+            [t.detach().clone() for t in state.model.state_dict().values()])
+
+
+def dp1_phase(step_ms, flat_loss, smi: str) -> dict:
+    """Phase DP1: phase 2's step (SparK fused flat with K3, LAMB, batch
+    BATCH, the same config, weights and images) under a real NCCL process
+    group of one process, made by cmx_torch.parallel.dist from the
+    launcher's variables. Its first step is held bit for bit to the same
+    step without a group (loss, grad norm, every parameter and BN buffer;
+    both with cuDNN's deterministic algorithms); the collectives are
+    counted (all-reduces a step and their bytes: the gradients alone 4
+    bytes a parameter) and the kernels' launches (K1 4, K2 4, K3 1 + 1);
+    then SPARK_STEPS steps are timed beside phase 2's step."""
+    import os
+
+    import torch
+    import torch.distributed as tdist
+
+    from cmx_torch.parallel import dist as pdist
+    from cmx_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    state, step, imgs = make_step(make_cfg(BATCH))
+    ref = _deterministic_step(state, step, imgs)
+    del state, step
+    torch.cuda.empty_cache()
+    env = _dp_env(1, 0, _free_port())
+    os.environ.update(env)
+    try:
+        if not pdist.initialize_distributed("cuda"):
+            fail("DP1: initialize_distributed made no process group")
+        backend = tdist.get_backend()
+        state, step, imgs = make_step(make_cfg(BATCH))
+        n_params = sum(p.numel() for p in state.model.parameters())
+        _zero_launches()
+        mesh.reset_counts()
+        loss, gnorm, tensors = _deterministic_step(state, step, imgs)
+        counts, launches = dict(mesh.counts), _launches()
+        same = (torch.equal(loss, ref[0]) and torch.equal(gnorm, ref[1])
+                and all(torch.equal(a, b) for a, b in zip(tensors, ref[2])))
+        print(f"DP1 ({backend}, world {tdist.get_world_size()}): first step "
+              f"loss {float(loss):.9g} (without a group {float(ref[0]):.9g}; "
+              f"phase 1's recorded step {flat_loss}), grad norm "
+              f"{float(gnorm):.9g}; loss, grad norm, {len(tensors)} "
+              f"parameters and BN buffers bit for bit the step without a "
+              f"group: {same}; collectives a step {counts}; gradient bytes "
+              f"{counts.get('grad_all_reduce_bytes')} = 4 x {n_params} "
+              f"parameters; launches {launches}", flush=True)
+        k1, k2 = FLAT_KERNELS
+        want = {k1: 4, k2: 4, "spark_loss_pallas": 1, "spark_loss_bwd": 1}
+        if backend != "nccl" or not same:
+            fail("DP1: the NCCL step of one process is not the step without "
+                 "a group bit for bit")
+        if (counts.get("grad_all_reduce") != 1
+                or counts.get("grad_all_reduce_bytes") != 4 * n_params
+                or not counts.get("all_reduce") or launches != want):
+            fail(f"DP1: collectives {counts} or launches {launches} "
+                 f"(expected {want})")
+        _zero_launches()
+        dp_ms, _ = run_steps(state, step, imgs, SPARK_STEPS,
+                             "DP1 (NCCL, world 1)")
+        run_launches = _launches()
+        per_step = {n: v / SPARK_STEPS for n, v in run_launches.items()}
+        if per_step != want:
+            fail(f"DP1: launches a step {per_step}, expected {want}")
+    finally:
+        pdist.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    beside = ("" if step_ms is None else f" beside phase 2's {step_ms:.3f} "
+              f"without a group ({dp_ms / step_ms:.3f}x)")
+    print(f"DP1: step_ms={dp_ms:.3f} under NCCL (world 1){beside}, batch "
+          f"{BATCH}; {smi}; the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"step_ms": dp_ms, "counts": counts, "launches": run_launches}
+
+
+def dp_rank_main(rank: int, out: str) -> int:
+    """One of DP2's ranks (`python3 chip_smoke.py --dp-rank R --dp-out
+    PATH`, the launcher's variables in the environment): a gloo group on
+    the one card, phase 2's step at DP2_BATCH, the rank's rows of the
+    global batch of 2 x DP2_BATCH images; DP2_STEPS steps, each one's
+    launches counted; results to PATH.<rank>.json and .pt."""
+    import hashlib
+
+    import torch
+
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from cmx_torch import resolve_device
+    from cmx_torch.parallel import dist as pdist
+    from cmx_torch.parallel import mesh
+
+    resolve_device("cuda")
+    pdist.initialize_distributed("cuda", backend="gloo")
+    world = pdist.process_info()[1]
+    state, step, imgs = make_step(make_cfg(DP2_BATCH * world))
+    local = mesh.rank_slice(imgs)
+    mesh.replicate(state.model, state.extra)
+    losses, launches, times, bn = [], [], [], None
+    for i in range(DP2_STEPS):
+        _zero_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, local)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        launches.append(_launches())
+        if i == 0:
+            bn = {n: b.detach().cpu() for n, b in state.model.named_buffers()}
+    h = hashlib.sha256()
+    for t in (list(state.model.state_dict().values())
+              + [x for v in state.opt.state_dict().values()
+                 for x in (v if isinstance(v, list) else [v])]):
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    torch.save(bn, f"{out}.{rank}.pt")
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump({"losses": losses, "launches": launches,
+                   "step_ms": sum(times[2:]) / (DP2_STEPS - 2) * 1e3,
+                   "digest": h.hexdigest(), "batch": local.shape[0]}, f)
+    pdist.shutdown()
+    return 0
+
+
+def _run_ranks(label: str, cmds: list, envs: list, work: Path) -> None:
+    """Start every command at once, each with its environment and log;
+    wait DP_TIMEOUT seconds for each (killing any that runs past it, and the
+    rest when one fails); fail with the logs' tails unless all exit 0."""
+    import os
+
+    procs = []
+    for i, (cmd, env) in enumerate(zip(cmds, envs)):
+        log = open(work / f"{label}.{i}.log", "w")
+        procs.append((subprocess.Popen(cmd, env={**os.environ, **env},
+                                       stdout=log, stderr=subprocess.STDOUT),
+                      log))
+    bad = []
+    for p, log in procs:
+        try:
+            p.wait(timeout=DP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.close()
+        if p.returncode != 0:
+            bad.append(f"[{label} {log.name}: exit {p.returncode}]\n"
+                       + Path(log.name).read_text()[-3000:])
+            for q, _ in procs:
+                if q.poll() is None:
+                    q.kill()
+    for p, _ in procs:
+        p.wait()
+    if bad:
+        print("\n".join(bad), flush=True)
+        fail(f"{label}: a process failed")
+
+
+def dp2_phase(work: Path, smi: str) -> dict:
+    """Phase DP2: two ranks of a gloo group on the one card (two spawned
+    processes, `dp_rank_main`), each at DP2_BATCH, against one process at
+    2 x DP2_BATCH from the same weights, images and step draws. Each rank
+    launches K1 4, K2 4 and K3 1 + 1 a step; every step's loss within 2e-2
+    of the one process's and every BN running stat after the first step
+    within 5e-2 (phase 3's bf16 bands); the ranks' parameters, BN buffers
+    and LAMB state bit for bit equal after the steps. Gloo stages every
+    collective through the host, so the step time shows that the path
+    runs, not how fast NCCL across cards would be."""
+    import torch
+
+    t0 = time.perf_counter()
+    state, step, imgs = make_step(make_cfg(2 * DP2_BATCH))
+    ref_losses, ref_bn = [], None
+    for i in range(DP2_STEPS):
+        ref_losses.append(float(step(state, imgs)["loss"]))
+        if i == 0:
+            ref_bn = {n: b.detach().cpu() for n, b in
+                      state.model.named_buffers()}
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    out = work / "dp2"
+    port = _free_port()
+    _run_ranks("DP2", [[sys.executable, str(Path(__file__).resolve()),
+                        "--dp-rank", str(r), "--dp-out", str(out)]
+                       for r in range(2)],
+               [_dp_env(2, r, port) for r in range(2)], work)
+    ranks = [json.loads(Path(f"{out}.{r}.json").read_text())
+             for r in range(2)]
+    bns = [torch.load(f"{out}.{r}.pt") for r in range(2)]
+    k1, k2 = FLAT_KERNELS
+    want = {k1: 4, k2: 4, "spark_loss_pallas": 1, "spark_loss_bwd": 1}
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref_losses))
+    bn_err = max(float((bn[n] - ref_bn[n]).abs().max()) for bn in bns
+                 for n in ref_bn)
+    print(f"DP2 (gloo, 2 ranks on one card, batch {ranks[0]['batch']} each "
+          f"against one process at {2 * DP2_BATCH}): losses rank 0 "
+          f"{ranks[0]['losses']}, rank 1 {ranks[1]['losses']}, one process "
+          f"{ref_losses} (largest relative difference {loss_err:.3e}); BN "
+          f"stats after step 1 within {bn_err:.3e}; ranks' state bit for "
+          f"bit equal {ranks[0]['digest'] == ranks[1]['digest']}; launches "
+          f"a step {ranks[0]['launches']}; step_ms per rank "
+          f"{ranks[0]['step_ms']:.3f} / {ranks[1]['step_ms']:.3f} (gloo "
+          f"stages every collective through the host: the path runs, not "
+          f"its speed); {smi}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if any(la != want for r in ranks for la in r["launches"]):
+        fail(f"DP2: a rank's launches a step differ from {want}")
+    if loss_err > 2e-2 or bn_err > 5e-2:
+        fail("DP2: two ranks do not equal one process within the bf16 bands")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        fail("DP2: the two ranks' states differ")
+    launches = collections.Counter()
+    for r in ranks:
+        for la in r["launches"]:
+            launches.update(la)
+    return {"step_ms": [r["step_ms"] for r in ranks], "loss_err": loss_err,
+            "bn_err": bn_err, "launches": dict(launches)}
+
+
+def dp_cli_run(args: list) -> int:
+    """`python3 chip_smoke.py --cli-run ARGS`: cmx_torch.cli.pretrain.main
+    on ARGS with cuDNN's deterministic algorithms (DP-CLI's launcher run)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cmx_torch.cli.pretrain import main as pretrain_main
+
+    torch.backends.cudnn.deterministic = True
+    pretrain_main(args)
+    return 0
+
+
+def dp_phases(work: Path, data_dir, step_ms, flat_loss, smi: str) -> dict:
+    """DP1, DP2 and DP-CLI (see the module docstring); `data_dir` None
+    makes DP-CLI's corpus in `work`, step_ms and flat_loss None (with
+    --dp) leave out phase 2's numbers."""
+    t0 = time.perf_counter()
+    out = {"dp1": dp1_phase(step_ms, flat_loss, smi),
+           "dp2": dp2_phase(work, smi),
+           "cli": dp_cli_phase(work, data_dir or f"{work}/data")}
+    print(f"DP phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def dp_cli_phase(work: Path, data_dir: str) -> dict:
+    """Phase DP-CLI: the pretrain CLI for one epoch on the CLI phase's
+    corpus (SparK fused flat with K3, batch CM_CLI_BATCH, validation) twice
+    with cuDNN's deterministic algorithms: in this process without a group,
+    and under torch's launcher, `torchrun --nproc_per_node 1` (NCCL, world
+    1; where torchrun is not on the PATH, the launcher's variables set by
+    hand). Its encoder.npz must equal the single-process run's bit for
+    bit, and its log.jsonl hold the same losses."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cmx_torch.cli.pretrain import main as pretrain_main
+
+    t0 = time.perf_counter()
+    base = ["--task", "spark", "data.synthetic=True",
+            f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={data_dir}",
+            "model.fused_conv=True", "task.pallas_loss=True",
+            f"data.image_size={CLI_SIZE}", f"train.batch_size={CM_CLI_BATCH}",
+            "optim.name=lamb", "optim.lr=2e-4", "optim.weight_decay=0.04",
+            "optim.clip_norm=5.0", "train.patience=5", "train.epochs=1"]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = pretrain_main(base + [f"train.ckpt_dir={work}/dp_one"])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    del one
+    torch.cuda.empty_cache()
+    script = [str(Path(__file__).resolve()), "--cli-run", *base,
+              f"train.ckpt_dir={work}/dp_run"]
+    torchrun = shutil.which("torchrun")
+    if torchrun:
+        cmd = [torchrun, "--standalone", "--nproc_per_node", "1", *script]
+        env = {}
+    else:
+        cmd, env = [sys.executable, *script], _dp_env(1, 0, _free_port())
+    _run_ranks("DP-CLI", [cmd], [env], work)
+    logs, same = [], True
+    for d in ("dp_one", "dp_run"):
+        with open(Path(work) / d / "spark" / "log.jsonl") as f:
+            logs.append([json.loads(line) for line in f])
+    with np.load(Path(work) / "dp_one" / "spark" / "encoder.npz") as a, \
+            np.load(Path(work) / "dp_run" / "spark" / "encoder.npz") as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    group = re.search(r"process group: (\w+) rank (\d+) of (\d+)",
+                      (Path(work) / "DP-CLI.0.log").read_text())
+    how = ("torchrun --nproc_per_node 1" if torchrun
+           else "the launcher's variables set by hand")
+    print(f"DP-CLI: {how} ({group.group(0) if group else 'no group line'}):"
+          f" encoder.npz bit for bit the single-process run's: {same}; loss "
+          f"{logs[1][0]['loss']:.9g} / {logs[0][0]['loss']:.9g}, val_loss "
+          f"{logs[1][0]['val_loss']:.9g} / {logs[0][0]['val_loss']:.9g}; "
+          f"the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    losses = [[(r["loss"], r["val_loss"]) for r in log] for log in logs]
+    if not same or losses[0] != losses[1]:
+        fail("DP-CLI: the launcher's run is not the single-process run")
+    if not group or group.group(1) != "nccl" or group.group(3) != "1":
+        fail("DP-CLI: the launcher's run made no NCCL group of one process")
+    return {"same": same, "torchrun": bool(torchrun)}
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cm1-batch", type=int, default=None,
                    help="run phase CM1 alone at this batch and report its "
                         "peak memory (an out-of-memory error propagates)")
+    p.add_argument("--dp", action="store_true",
+                   help="build the kernels, then run phases DP1, DP2 and "
+                        "DP-CLI alone")
+    p.add_argument("--dp-rank", type=int, default=None,
+                   help="(spawned by DP2) run as this rank of the gloo group "
+                        "its environment describes")
+    p.add_argument("--dp-out", default=None, help="(with --dp-rank) results")
+    p.add_argument("--cli-run", nargs=argparse.REMAINDER, default=None,
+                   help="(run by DP-CLI under torchrun) the pretrain CLI on "
+                        "the remaining arguments")
     args = p.parse_args(argv)
     import torch
 
@@ -2259,6 +2661,10 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_out)
+    if args.cli_run is not None:
+        return dp_cli_run(args.cli_run)
     if args.cm1_batch is not None:
         cm = cm_phase(args.cm1_batch, SPARK_STEPS)
         print(json.dumps({"cm1": {"batch": args.cm1_batch, **cm}}),
@@ -2270,6 +2676,13 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    if args.dp:
+        scratch = repo / "_scratch"
+        scratch.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as work:
+            dp_phases(Path(work), None, None, None, smi)
+        print(smi, flush=True)
+        return 0
     for name in sorted(_build.build_all()):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -2432,6 +2845,7 @@ def main(argv=None) -> int:
             flush=True)
         rm_cli_phase(Path(work), data_dir, rm["mae"])
         ev = ev_phase(encoder, data_dir)
+        dp = dp_phases(Path(work), data_dir, step_ms, flat_loss, smi)
         rm_launches = collections.Counter()
         for r in rm.values():
             for c in ("plain", "remat"):
@@ -2448,10 +2862,14 @@ def main(argv=None) -> int:
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    # K1-K3: the SparK run's launches, MAE1's, G1's, DV's and RM's
+    # K1-K3: the SparK run's launches, MAE1's, G1's, DV's, RM's, and DP1's
+    # and both DP2 ranks'
+    dp_launches = collections.Counter(dp["dp1"]["launches"])
+    dp_launches.update(dp["dp2"]["launches"])
     launches = {**{n: spark_launches[n] + mae_launches.get(n, 0)
                    + g_launches.get(n, 0) + dv_launches.get(n, 0)
-                   + rm_launches.get(n, 0) for n in SPARK_KERNELS},
+                   + rm_launches.get(n, 0) + dp_launches.get(n, 0)
+                   for n in SPARK_KERNELS},
                 **{n: moco_launches[n] for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
@@ -2514,9 +2932,14 @@ def main(argv=None) -> int:
           f"batch {BATCH} for K1-K3 (FUSED_IMPL flat) and K6-K8 (nhwc), MoCo "
           f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "
           f"launches: {SPARK_STEPS} SparK steps of each impl, K1-K3 also "
-          f"MAE1's, G1's, DV's and RM's {SPARK_STEPS} steps each / "
+          f"MAE1's, G1's, DV's, RM's and DP1's {SPARK_STEPS} steps each and "
+          f"DP2's {DP2_STEPS} on each of its two ranks / "
           f"{MOCO_STEPS} MoCo steps / the K5 phase); SparK step_ms flat="
-          f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; EV {ev['secs']:.1f} s", flush=True)
+          f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; EV {ev['secs']:.1f} s; DP1 "
+          f"(NCCL, world 1) step_ms={dp['dp1']['step_ms']:.3f}, DP2 (gloo, 2 "
+          f"ranks on one card) step_ms per rank "
+          f"{', '.join(f'{t:.3f}' for t in dp['dp2']['step_ms'])}",
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

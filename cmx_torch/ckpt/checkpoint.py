@@ -17,6 +17,8 @@ Two formats, as in cmx, with one difference:
     (`export_model`: the whole tree), flax layouts. An `encoder.npz` written
     by either package loads in the other; `write_stamp` writes cmx's
     provenance stamp beside it.
+Under data parallel rank 0 alone writes (every rank waits for it at a
+barrier, `parallel.dist.on_main`); every rank restores the same file.
 
 cmx's variables are a flax tree {"params": ..., "batch_stats": ...}; the
 port keeps flax's names on its parameters and buffers
@@ -52,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from cmx_torch.parallel.dist import on_main
 from cmx_torch.train.state import TrainState
 
 
@@ -239,6 +242,10 @@ class CheckpointManager:
         an existing file of the step is replaced). `force` is accepted for
         cmx's signature: every save is written."""
         del force
+        on_main(self._write, step, state, metrics, config)
+
+    def _write(self, step: int, state: TrainState, metrics: Optional[dict],
+               config: Optional[dict]) -> None:
         blob = {"step": int(step), "seed": state.seed,
                 "model": state.model.state_dict(),
                 "opt": state.opt.state_dict(),
@@ -259,10 +266,13 @@ class CheckpointManager:
         if metric < self._best:
             self._best = metric
             self.save(step, state, metrics={"best_metric": metric}, **kw)
-            with open(self._best_path, "w") as f:
-                json.dump({"best_metric": metric, "step": step}, f)
+            on_main(self._write_best, metric, step)
             return True
         return False
+
+    def _write_best(self, metric: float, step: int) -> None:
+        with open(self._best_path, "w") as f:
+            json.dump({"best_metric": metric, "step": step}, f)
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
@@ -316,7 +326,11 @@ def export_encoder(state: TrainState, path: str,
     """Encoder-only export (the timm_style analog, Spark/utils/misc.py:159-162),
     cmx's format: the `encoder` params + batch_stats subtrees of the state's
     model as a flat .npz (`params/down1/...`, `batch_stats/down1/...`; the
-    whole trees when the model has no `encoder`)."""
+    whole trees when the model has no `encoder`). Rank 0 writes it."""
+    on_main(_write_npz, state, path, prefix)
+
+
+def _write_npz(state: TrainState, path: str, prefix: Optional[str]) -> None:
     params, bs = _subtrees(to_flax(state.model), prefix)
     arrays = {**_flatten(params, "params"), **_flatten(bs, "batch_stats")}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -335,7 +349,14 @@ def write_stamp(encoder_path: str, config: dict, **info) -> str:
     the encoder's sha256 and size, the creation time and `info` (task,
     corpus, final metrics), written to `<encoder_path>.stamp.json`.
 
-    Returns the stamp path."""
+    Returns the stamp path (rank 0 writes it)."""
+    path = encoder_path + ".stamp.json"
+    on_main(_write_stamp, encoder_path, path, config, info)
+    return path
+
+
+def _write_stamp(encoder_path: str, path: str, config: dict,
+                 info: dict) -> None:
     with open(encoder_path, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
     stamp = {
@@ -346,10 +367,8 @@ def write_stamp(encoder_path: str, config: dict, **info) -> str:
         "created": time.strftime("%F %T"),
         **info,
     }
-    path = encoder_path + ".stamp.json"
     with open(path, "w") as f:
         json.dump(stamp, f, indent=2, sort_keys=True)
-    return path
 
 
 def _inject(tree: Dict[str, Any], data, root: str) -> None:

@@ -3,6 +3,7 @@
     python -m cmx_torch.cli.pretrain --task spark [--preset] [a.b=c ...]
     python -m cmx_torch.cli.pretrain --device cpu --task spark \
         data.synthetic=True train.epochs=2 ...
+    torchrun --nproc_per_node N -m cmx_torch.cli.pretrain --task spark ...
 
 `build_task` for task.name "spark", "moco", "genesis", "mae" and "cmunet"
 (`model.remat` names the blocks recomputed in the backward for spark,
@@ -15,6 +16,17 @@ same scalars under `<ckpt_dir>/tb` too, when a TensorBoard writer can be
 made), the checkpoints, and the `encoder.npz` /
 `model.npz` exports with their stamp. Everything runs on the card unless
 `--device cpu` is given.
+
+Data parallel, as cmx's multi-process run: under torch's launcher
+(WORLD_SIZE set) each of the W processes takes cuda:LOCAL_RANK (NCCL; gloo
+with --device cpu) and B/W of every global batch of train.batch_size (the
+sampler's rank slice), and the step is cmx's global-view step at B
+(cmx_torch.parallel.mesh). The initial state is broadcast from rank 0, every
+rank restores the same checkpoint, and rank 0 alone writes checkpoints,
+log.jsonl, TensorBoard, encoder.npz, model.npz and the stamp. Validation
+takes global batches of train.batch_size, each rank its rows (cmx feeds
+every process the same rows), and its losses are global. The device feed
+stays single-process, as in cmx.
 
 Differences from cmx's CLI, each for a reason:
   * `train.scan`: cmx compiles segments of steps into one `lax.scan`
@@ -47,8 +59,11 @@ import torch
 
 from cmx_torch import resolve_device
 from cmx_torch.config.config import Config, apply_overrides, display, to_dict
+from cmx_torch.parallel import mesh
 from cmx_torch.parallel.dist import (InfiniteBatchSampler,
-                                     initialize_distributed, process_info)
+                                     initialize_distributed, is_main,
+                                     local_rank, on_main, process_info,
+                                     shutdown)
 from cmx_torch.train.trainer import Task, extra_buffers
 
 def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
@@ -236,8 +251,22 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     p.add_argument("overrides", nargs="*", help="dotted config overrides a.b=c")
     args = p.parse_args(argv)
 
-    initialize_distributed()
     dev = resolve_device(args.device)
+    made_group = initialize_distributed(dev)
+    try:
+        return _run(args, dev)
+    finally:
+        if made_group:
+            shutdown()
+
+
+def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
+    if mesh.active():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local_rank())
+        rank, world = process_info()
+        print(f"process group: {mesh.backend()} rank {rank} "
+              f"of {world} on {dev}")
     cfg = Config()
     cfg.task.name = args.task or cfg.task.name
     if args.preset:
@@ -254,11 +283,18 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     seed_everything(cfg.train.seed)
     dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
 
+    if mesh.active():  # rank 0 writes a synthetic corpus before any reads
+        from cmx_torch.data.synthetic import resolve_corpus
+
+        on_main(resolve_corpus, cfg.data)
     imgs, loader = load_pretrain_images(cfg)
     n_pretrain_imgs = int(imgs.shape[0])
     print(f"corpus: {n_pretrain_imgs} images of {imgs.shape[1]}x"
           f"{imgs.shape[2]} by the {loader} loader")
     rank, world = process_info()
+    if cfg.train.batch_size % world:
+        raise ValueError(f"train.batch_size={cfg.train.batch_size} does not "
+                         f"split over {world} processes")
     per_host_batch = cfg.train.batch_size // world
     sampler = InfiniteBatchSampler(
         imgs.shape[0], per_host_batch, rank=rank, world_size=world,
@@ -309,8 +345,9 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     if cfg.train.resume and mgr.latest_step() is not None:
         mgr.restore(state)
         print(f"resumed from step {state.step}")
+    mesh.replicate(state.model, state.extra)  # replicas start equal
 
-    if cfg.train.tee:
+    if cfg.train.tee and is_main():
         # mirror stdout/stderr into the run dir (Spark/utils/misc.py:72-86)
         from cmx_torch.utils.logging import tee_output
 
@@ -323,9 +360,10 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
         from cmx_torch.utils.tensorboard import TensorboardLogger
 
         tb = TensorboardLogger(os.path.join(ckpt_dir, "tb"))
-        print("tensorboard: " + (
-            f"writing to {os.path.join(ckpt_dir, 'tb')}" if tb.writer
-            else "no writer (no tensorboard package): not logging"))
+        if is_main():
+            print("tensorboard: " + (
+                f"writing to {os.path.join(ckpt_dir, 'tb')}" if tb.writer
+                else "no writer (no tensorboard package): not logging"))
 
     # Genesis-style validation slice + early stopping (patience 50 in the
     # reference config; off by default here).
@@ -333,7 +371,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     moco_validate = None
     val_queue = None
     if cfg.train.patience > 0 and imgs.shape[0] > 4:
-        n_val = max(per_host_batch, int(imgs.shape[0] * cfg.train.val_fraction))
+        n_val = max(cfg.train.batch_size,
+                    int(imgs.shape[0] * cfg.train.val_fraction))
         n_val = min(n_val, imgs.shape[0] // 2)
         val_imgs, imgs = imgs[:n_val], imgs[n_val:]
         sampler = InfiniteBatchSampler(
@@ -417,16 +456,19 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
             print(f"profile of epoch {ep} written to {trace}")
         epoch_metrics = {k: m.avg for k, m in logger.meters.items()}
         print(f"epoch {ep}: {logger}  ({dt:.1f}s, "
-              f"{steps_per_epoch * per_host_batch / dt:.1f} img/s)")
+              f"{steps_per_epoch * cfg.train.batch_size / dt:.1f} img/s)")
 
         if val_imgs is not None:
-            vb = val_imgs[: (len(val_imgs) // per_host_batch) * per_host_batch]
-            batches = [torch.from_numpy(vb[i: i + per_host_batch]).to(dev)
-                       for i in range(0, len(vb), per_host_batch)]
+            # global batches of train.batch_size; this rank's rows of each
+            gb = cfg.train.batch_size
+            vb = val_imgs[: (len(val_imgs) // gb) * gb]
+            starts = range(0, len(vb), gb)
+            batches = [torch.from_numpy(
+                vb[i + rank * per_host_batch: i + (rank + 1) * per_host_batch]
+            ).to(dev) for i in starts]
             if moco_validate is not None:
                 vms = []
-                for i, vbatch in zip(range(0, len(vb), per_host_batch),
-                                     batches):
+                for i, vbatch in zip(starts, batches):
                     gen = _generator(dev, cfg.train.seed * 1_000_003
                                      + ep * 10_000 + i)
                     m, val_queue = moco_validate(state, val_queue, vbatch, gen)
@@ -485,7 +527,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     print("done; encoder exported to", encoder_path)
     print("stamp written to", stamp_path)
     n_val_batches = (0 if val_imgs is None
-                     else len(val_imgs) // per_host_batch)
+                     else len(val_imgs) // cfg.train.batch_size)
     return {"state": state, "ckpt_dir": ckpt_dir, "loader": loader,
             "device_feed": corpus_dev is not None, "epochs_run": int(ep) + 1,
             "steps_per_epoch": steps_per_epoch, "val_batches": n_val_batches,

@@ -11,7 +11,7 @@
 //   drec = g * 2 (rec - norm) * masked / (p^2 * denom), in rec's dtype.
 //
 // Bound on the card: bytes. The forward reads rec (in its own dtype, 2 bytes
-// a pixel in bf16), imgs (fp32) and the active grid once and writes two
+// a pixel in bf16), imgs (fp32) and the active grid once and writes three
 // floats: 12.6 MB at batch 32, 256^2, bf16 rec, 0.0038 ms at 3.35 TB/s. The
 // backward reads the same and writes drec in rec's dtype: 16.8 MB, 0.005 ms.
 // About ten flops a pixel each way, far under the fp32 peak.
@@ -27,8 +27,10 @@
 //     `partials`; then __threadfence() and an atomic ticket. The block that
 //     draws the last ticket sums every block's partials in a fixed order
 //     (each thread a strided run, then a shared-memory tree), writes the
-//     fp32 loss and the denominator sum(masked) + 1e-8 (for the backward),
-//     and re-arms the ticket to 0. No host op between rec and the loss, and
+//     fp32 loss, its numerator sum(l2 * masked) and the denominator
+//     sum(masked) + 1e-8 (for the backward; under data parallel the host
+//     sums numerator and denominator over the ranks and divides), and
+//     re-arms the ticket to 0. No host op between rec and the loss, and
 //     the same bits on every run with the same inputs.
 //   * Backward. The same walk; each patch's statistics are recomputed from
 //     imgs, as cmx does (the backward reads imgs anyway to form norm, so a
@@ -126,7 +128,8 @@ template <typename TR, typename TA>
 __global__ void __launch_bounds__(kThreads)
 spark_loss_fwd_kernel(const TR* __restrict__ rec, const float* __restrict__ imgs,
                       const TA* __restrict__ act, float* __restrict__ loss,
-                      float* __restrict__ denom, float* __restrict__ partials,
+                      float* __restrict__ num, float* __restrict__ denom,
+                      float* __restrict__ partials,
                       unsigned int* __restrict__ ticket, int H, int W) {
   __shared__ float sm_l2[kThreads];
   __shared__ float sm_m[kThreads];
@@ -188,6 +191,7 @@ spark_loss_fwd_kernel(const TR* __restrict__ rec, const float* __restrict__ imgs
   if (threadIdx.x == 0) {
     float d = sm_m[0] + 1e-8f;
     *loss = sm_l2[0] / d;
+    *num = sm_l2[0];
     *denom = d;
     *ticket = 0u;  // re-armed for the next launch on the stream
   }
@@ -221,12 +225,13 @@ spark_loss_bwd_kernel(const TR* __restrict__ rec, const float* __restrict__ imgs
 
 template <typename TR, typename TA>
 cudaError_t launch_fwd(const void* rec, const void* imgs, const void* act,
-                       void* loss, void* denom, void* partials, void* ticket,
-                       int B, int H, int W, cudaStream_t s) {
+                       void* loss, void* num, void* denom, void* partials,
+                       void* ticket, int B, int H, int W, cudaStream_t s) {
   spark_loss_fwd_kernel<TR, TA><<<B * (H / kPatch), kThreads, 0, s>>>(
       static_cast<const TR*>(rec), static_cast<const float*>(imgs),
       static_cast<const TA*>(act), static_cast<float*>(loss),
-      static_cast<float*>(denom), static_cast<float*>(partials),
+      static_cast<float*>(num), static_cast<float*>(denom),
+      static_cast<float*>(partials),
       static_cast<unsigned int*>(ticket), H, W);
   return cudaGetLastError();
 }
@@ -250,13 +255,13 @@ bool bad_shape(int B, int H, int W) {
 
 // rec (B,H,W) bf16 (rec_bf16 = 1) or fp32, imgs (B,H,W) fp32, act (B,H/16,
 // W/16) bf16 (act_bf16 = 1) or fp32, all contiguous and 16-byte aligned;
-// loss and denom one fp32 each; partials 2*B*(H/16) fp32 of scratch; ticket
+// loss, num and denom one fp32 each; partials 2*B*(H/16) fp32 of scratch; ticket
 // one unsigned int that is 0 before the launch (and after it).
 extern "C" int cmx_spark_loss_fwd(const void* rec, const void* imgs,
-                                  const void* act, void* loss, void* denom,
-                                  void* partials, void* ticket, int B, int H,
-                                  int W, int rec_bf16, int act_bf16,
-                                  void* stream) {
+                                  const void* act, void* loss, void* num,
+                                  void* denom, void* partials, void* ticket,
+                                  int B, int H, int W, int rec_bf16,
+                                  int act_bf16, void* stream) {
   using namespace cmx;
   if (bad_shape(B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -265,7 +270,7 @@ extern "C" int cmx_spark_loss_fwd(const void* rec, const void* imgs,
                     : (act_bf16 ? launch_fwd<float, __nv_bfloat16>
                                 : launch_fwd<float, float>);
   return static_cast<int>(
-      f(rec, imgs, act, loss, denom, partials, ticket, B, H, W, s));
+      f(rec, imgs, act, loss, num, denom, partials, ticket, B, H, W, s));
 }
 
 // The same operands as the forward, g the loss's fp32 cotangent and denom

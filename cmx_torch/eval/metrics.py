@@ -11,6 +11,10 @@ As in cmx (and the reference, Finetuning/train.py:455):
     its cross entropy alone; `threshold=None` gives a soft Dice.
   * f-score and IoU reduce over the whole batch (one tp/fp/fn sum), not per
     image.
+Under data parallel (cmx_torch.parallel.mesh) the f-score's and IoU's sums,
+and the cross entropy's and MSE's means, are over the global batch, as in
+cmx's global-view step: every rank gets the global value, and its backward
+gives the rank's own part of the gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from cmx_torch.parallel import mesh
 
 # ---------------------------------------------------------------- helpers
 
@@ -67,9 +73,11 @@ def f_score(pr: torch.Tensor, gt: torch.Tensor, beta: float = 1.0,
     """Soft F-beta over the whole batch."""
     pr = _threshold(pr, threshold)
     pr, gt = _take_channels(pr, gt, ignore_channels=ignore_channels)
-    tp = torch.sum(gt * pr)
-    fp = torch.sum(pr) - tp
-    fn = torch.sum(gt) - tp
+    sums = mesh.all_reduce_shared(
+        torch.stack([torch.sum(gt * pr), torch.sum(pr), torch.sum(gt)]))
+    tp = sums[0]
+    fp = sums[1] - tp
+    fn = sums[2] - tp
     b2 = beta * beta
     return ((1 + b2) * tp + eps) / ((1 + b2) * tp + b2 * fn + fp + eps)
 
@@ -94,8 +102,10 @@ def iou_loss(logits: torch.Tensor, target: torch.Tensor, *,
     pr = _apply_activation(logits, activation)
     pr = _threshold(pr, threshold)
     pr, gt = _take_channels(pr, target, ignore_channels=ignore_channels)
-    inter = torch.sum(gt * pr)
-    union = torch.sum(gt) + torch.sum(pr) - inter + eps
+    sums = mesh.all_reduce_shared(
+        torch.stack([torch.sum(gt * pr), torch.sum(gt), torch.sum(pr)]))
+    inter = sums[0]
+    union = sums[1] + sums[2] - inter + eps
     return 1.0 - (inter + eps) / union
 
 
@@ -106,7 +116,7 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tens
     """Pixelwise CE with probabilistic (one-hot float) targets, the mean over
     the batch and the pixels: -sum_c target_c * log_softmax(logits)_c."""
     logp = torch.log_softmax(logits.float(), dim=1)
-    return -torch.mean(torch.sum(target * logp, dim=1))
+    return mesh.global_mean(-torch.mean(torch.sum(target * logp, dim=1)))
 
 
 def nll_loss(log_probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -130,7 +140,8 @@ def label_smooth_loss(logits: torch.Tensor, target: torch.Tensor,
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.square(pred.float() - target.float()))
+    return mesh.global_mean(
+        torch.mean(torch.square(pred.float() - target.float())))
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

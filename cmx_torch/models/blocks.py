@@ -23,6 +23,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from cmx_torch.ops import fused_conv as fc
+from cmx_torch.parallel import mesh
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -135,7 +136,11 @@ class MaskedBatchNorm(nn.Module):
         var = E[(x-s)^2 m]/n - (E[(x-s) m]/n)^2,  s = running mean (constant),
     clamped at 0; running stats updated as 0.9*old + 0.1*batch with the
     population variance. With mask=None it is plain BatchNorm. Normalizes as
-    one multiply-add in `dtype` with (C,)-sized folds computed in fp32."""
+    one multiply-add in `dtype` with (C,)-sized folds computed in fp32. The
+    sums and counts are over the global batch: under data parallel they
+    are all-reduced (SyncBN, as cmx's global-view program computes them),
+    so the running stats, and with them the shift, stay equal on every
+    rank."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
                  momentum: float = 0.9, epsilon: float = 1e-5):
@@ -174,22 +179,26 @@ class MaskedBatchNorm(nn.Module):
         else:
             xf = x.float()
             red = (0, 2, 3)
+            c = xf.shape[1]
             s = self.mean.clone()[:, None, None]  # stop-gradient shift
             if mask is None:
                 d = xf - s
-                dm = d.mean(red)
-                mean = dm + s[:, 0, 0]
-                var = (d * d).mean(red) - dm * dm
+                n = xf.new_full((1,), float(xf.numel() // c))
             else:
                 m = mask.float()
                 if m.dim() == 3:
                     m = m[:, None]
-                denom = torch.clamp(m.sum(red), min=1.0)
                 d = (xf - s) * m
-                dm = d.sum(red) / denom
-                mean = dm + s[:, 0, 0]
-                var = (d * d).sum(red) / denom - dm * dm
-            var = torch.clamp(var, min=0.0)
+                n = m.sum(red)
+            # the sums over the global batch (one all-reduce under data
+            # parallel, whose backward sums the ranks' cotangents)
+            sums = mesh.all_reduce_sync(
+                torch.cat([d.sum(red), (d * d).sum(red), n]))
+            denom = sums[2 * c:] if mask is None else torch.clamp(
+                sums[2 * c:], min=1.0)
+            dm = sums[:c] / denom
+            mean = dm + s[:, 0, 0]
+            var = torch.clamp(sums[c:2 * c] / denom - dm * dm, min=0.0)
             self.update_running(mean.detach(), var.detach())
         out_dtype = self.dtype or x.dtype
         inv = torch.rsqrt(var + self.epsilon) * self.scale

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from cmx_torch.models.blocks import Dense, MaskedBatchNorm
+from cmx_torch.parallel import mesh
 
 
 class FeatureBatchNorm(MaskedBatchNorm):
@@ -27,8 +28,13 @@ class FeatureBatchNorm(MaskedBatchNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(0)
-            var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            c = x.shape[1]
+            # over the global batch (SyncBN under data parallel)
+            sums = mesh.all_reduce_sync(torch.cat(
+                [x.sum(0), (x * x).sum(0), x.new_full((1,), x.shape[0])]))
+            mean = sums[:c] / sums[2 * c:]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c:] - mean * mean,
+                              min=0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.mean, self.var

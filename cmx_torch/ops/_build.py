@@ -51,7 +51,7 @@ _SIGNATURES = {
                       "cmx_dw_blocks_per_sm": "i",
                       "cmx_mma_geometry": "p"},
     "crop_resize": {"cmx_crop_resize": "ppp" + "iiiii" + "p"},
-    "spark_loss": {"cmx_spark_loss_fwd": "ppppppp" + "iiiii" + "p",
+    "spark_loss": {"cmx_spark_loss_fwd": "pppppppp" + "iiiii" + "p",
                    "cmx_spark_loss_bwd": "pppppp" + "iiiii" + "p"},
     "nhwc_conv_fwd": {"cmx_nhwc_conv_fwd": "pppppppp" + "iiiiii" + "p",
                       "cmx_nhwc_stem": "pppppp" + "iii" + "p",

@@ -118,6 +118,22 @@ def random_hflip(imgs: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     return torch.where(flip[:, None, None], imgs.flip(-1), imgs)
 
 
+def spark_aug_draws(gen: Optional[torch.Generator], batch: int, h: int,
+                    w: int, out_size: int = 256,
+                    draws: Optional[dict] = None) -> dict:
+    """The random draws of `spark_pretrain_aug` for a batch, from `gen`,
+    except those given in `draws`: crop (B, 4) RandomResizedCrop(scale
+    (0.67, 1)) windows (sy, ty, sx, tx), then flip (B,) p 0.5."""
+    d = dict(draws or {})
+    if d.get("crop") is None:
+        d["crop"] = _crop_window_params(gen, batch, h, w, out_size,
+                                        (0.67, 1.0), (3 / 4, 4 / 3))
+    if d.get("flip") is None:
+        d["flip"] = torch.rand((batch,), generator=gen,
+                               device=gen.device) < 0.5
+    return d
+
+
 def spark_pretrain_aug(imgs: torch.Tensor, out_size: int = 256,
                        gen: Optional[torch.Generator] = None,
                        crop: Optional[torch.Tensor] = None,
@@ -128,11 +144,8 @@ def spark_pretrain_aug(imgs: torch.Tensor, out_size: int = 256,
     `crop` (B, 4) windows as (sy, ty, sx, tx) and `flip` (B,) bools are
     drawn from `gen` unless given."""
     b, h, w = imgs.shape
-    if crop is None:
-        crop = _crop_window_params(gen, b, h, w, out_size, (0.67, 1.0),
-                                   (3 / 4, 4 / 3))
-    if flip is None:
-        flip = torch.rand((b,), generator=gen, device=gen.device) < 0.5
+    d = spark_aug_draws(gen, b, h, w, out_size, {"crop": crop, "flip": flip})
+    crop, flip = d["crop"], d["flip"]
     out = resized_crop(imgs, crop.to(imgs.device), out_size, method="cubic")
     return random_hflip(out, flip.to(imgs.device))
 

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cmx_torch.ops import _build
+from cmx_torch.parallel import mesh
 
 # Strip height of the TPU kernels; blocks.DoubleConv's gate requires
 # H % STRIP == 0 so that the port fuses exactly where cmx does, and the NHWC
@@ -467,22 +468,25 @@ class FusedDoubleConv(torch.autograd.Function):
     """Masked DoubleConv (training mode) over NHWC operands: x (B,H,W,Cin)
     pre-masked, m (B,H,W) {0,1}, w_i (3,3,.,C) HWIO. Returns (out (B,H,W,C),
     mean0, var0, mean1, var1); the statistics are not differentiable (they
-    feed the running averages)."""
+    feed the running averages). Under data parallel its batch sums are
+    global, as FlatDoubleConv's."""
 
     @staticmethod
     def forward(ctx, x, m, w0, b0, g0, be0, w1, b1, g1, be1):
         cdt = _cdt()
         mb = m.to(cdt)
-        nact = torch.clamp(m.float().sum(), min=1.0)
         if x.shape[-1] == 1:
             patches = make_patches9(x[..., 0].to(cdt))
             y0, s0, q0 = conv_stem_stats(patches, mb,
                                          w0.reshape(9, -1).to(cdt), b0)
         else:
             y0, s0, q0 = conv3x3_mask_stats(x.to(cdt), mb, w0.to(cdt), b0)
+        s0, q0, nact = mesh.all_reduce_sum_many(s0, q0, m.float().sum())
+        nact = torch.clamp(nact, min=1.0)
         mean0, var0 = _stats(s0, q0, nact)
         inv0, shift0 = _fold(g0, be0, mean0, var0)
         y1, s1, q1 = conv3x3_mask_stats(y0, mb, w1.to(cdt), b1, inv0, shift0)
+        s1, q1 = mesh.all_reduce_sum_many(s1, q1)
         mean1, var1 = _stats(s1, q1, nact)
         inv1, shift1 = _fold(g1, be1, mean1, var1)
         out = (torch.relu(y1.float() * inv1 + shift1)
@@ -523,19 +527,22 @@ class FusedDoubleConv(torch.autograd.Function):
             return mf * (gamma * r) * (dz - (dbeta + xhat * dgamma) / nact)
 
         # stage 1: out -> y1 -> (h0, w1, b1)
+        # (the dy terms read the global sums; dg/dbe return the rank's own)
         dg1, dbe1 = stage_sums(g_out, y1, mean1, var1, inv1, shift1)
+        sg1, sbe1 = mesh.all_reduce_sum_many(dg1, dbe1)
         dh0, dw1 = bwd_mega(g_out, y1, y0, m, inv1, shift1, mean1, var1,
-                            dbe1, dg1, nact, w1, prev_fold=(inv0, shift0))
+                            sbe1, sg1, nact, w1, prev_fold=(inv0, shift0))
         db1 = torch.zeros_like(dbe1)  # BN absorbs the conv bias
 
         # stage 0: x -> y0 -> (x, w0, b0); the Cin < 8 stem goes to torch
         dg0, dbe0 = stage_sums(dh0, y0, mean0, var0, inv0, shift0)
+        sg0, sbe0 = mesh.all_reduce_sum_many(dg0, dbe0)
         if x.shape[-1] >= 8:
             dx, dw0 = bwd_mega(dh0, y0, x.to(cdt), m, inv0, shift0, mean0,
-                               var0, dbe0, dg0, nact, w0)
+                               var0, sbe0, sg0, nact, w0)
             db0 = torch.zeros_like(dbe0)
         else:
-            dy0 = stage_bwd(dh0, y0, mean0, var0, g0, be0, dg0, dbe0)
+            dy0 = stage_bwd(dh0, y0, mean0, var0, g0, be0, sg0, sbe0)
             db0 = dy0.sum(red)
             dx, dw0 = _conv_vjp(x, w0, dy0.to(cdt),
                                 need_dx=ctx.needs_input_grad[0])

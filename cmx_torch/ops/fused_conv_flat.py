@@ -20,7 +20,12 @@ kernel's launches: the function that launches it adds one right after.
 
 FlatDoubleConv is the differentiable DoubleConv core: the forward of
 cmx's _flat_fwd_impl and the backward of its _flat_bwd (conv biases get
-exact-zero gradients: batch norm absorbs them).
+exact-zero gradients: batch norm absorbs them). Under data parallel its
+batch sums are global, as in cmx's global-view program: K1's sums and the
+active count are all-reduced before the fold, and each stage's (dgamma,
+dbeta) sums before K2 reads them; the gamma/beta gradients it returns stay
+the rank's own sums, which the step's gradient all-reduce adds up (returning
+the global sums would count them W times).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from cmx_torch.ops.fused_conv import (_EPS, _aligned16, _bwd_vecs, _cdt,
                                         _dw_grid, _fold, _mma_lib,
                                         _pack_conv_weights, _ptr, _stats,
                                         _stream)
+from cmx_torch.parallel import mesh
 
 # What the flat kernels take: H % 8 == 0 (the conv's 8-row output tile, two
 # 4-row dW tiles) and W % 8 == 0 (a channel's image row is whole 16-byte
@@ -225,12 +231,14 @@ class FlatDoubleConv(torch.autograd.Function):
         in_dtype = xf.dtype
         xf = xf.to(cdt)
         mflat = mflat.to(cdt)
-        nact = torch.clamp(mflat.float().sum(), min=1.0)
         y0, s0, q0 = flat_conv3x3_mask_stats(xf, mflat, w0, b0, H, W)
+        s0, q0, nact = mesh.all_reduce_sum_many(s0, q0, mflat.float().sum())
+        nact = torch.clamp(nact, min=1.0)
         mean0, var0 = _stats(s0, q0, nact)
         inv0, shift0 = _fold(g0, be0, mean0, var0)
         y1, s1, q1 = flat_conv3x3_mask_stats(y0, mflat, w1, b1, H, W,
                                              inv0, shift0)
+        s1, q1 = mesh.all_reduce_sum_many(s1, q1)
         mean1, var1 = _stats(s1, q1, nact)
         inv1, shift1 = _fold(g1, be1, mean1, var1)
         out = (torch.relu(y1.float() * inv1[:, None] + shift1[:, None])
@@ -259,13 +267,16 @@ class FlatDoubleConv(torch.autograd.Function):
             xh = (yf - mean[:, None]) * r[:, None]
             return (dz * xh).sum((0, 2)), dz.sum((0, 2))
 
+        # K2 reads the global sums; dg/dbe return the rank's own
         dg1, dbe1 = stage_sums(g_out, y1, mean1, var1, inv1, shift1)
+        sg1, sbe1 = mesh.all_reduce_sum_many(dg1, dbe1)
         dh0, dw1 = flat_bwd_mega(g_out, y1, y0, mflat, inv1, shift1, mean1,
-                                 var1, dbe1, dg1, nact, w1, H, W,
+                                 var1, sbe1, sg1, nact, w1, H, W,
                                  prev_fold=(inv0, shift0))
         dg0, dbe0 = stage_sums(dh0, y0, mean0, var0, inv0, shift0)
+        sg0, sbe0 = mesh.all_reduce_sum_many(dg0, dbe0)
         dx, dw0 = flat_bwd_mega(dh0, y0, xf, mflat, inv0, shift0, mean0, var0,
-                                dbe0, dg0, nact, w0, H, W, prev_fold=None,
+                                sbe0, sg0, nact, w0, H, W, prev_fold=None,
                                 need_dx=ctx.needs_input_grad[0])
         if dx is not None:
             dx = dx.to(ctx.in_dtype)

@@ -6,12 +6,16 @@ of (rec - norm)^2, times (1 - active); then sum / (sum(1 - active) + 1e-8).
 On CUDA tensors it is one launch of the forward kernel of
 csrc/spark_loss.cu, which also finishes the sum and the divide (the last
 block to finish sums every block's partials in a fixed order) and writes
-the denominator for the backward; rec is read in its own dtype. `SparkLoss`
-adds cmx's closed-form backward
+the numerator and the denominator beside the loss; rec is read in its own
+dtype. `SparkLoss` adds cmx's closed-form backward
     dL/drec = g * 2 (rec - norm(img)) * masked / (p^2 * denom),
-one launch of the backward kernel (`spark_loss_bwd`). On CPU tensors both
-run their plain versions, `spark_loss_pallas_plain` and
-`spark_loss_bwd_plain` (cmx's arithmetic in eager torch).
+one launch of the backward kernel (`spark_loss_bwd`). Under data parallel
+`SparkLoss` sums numerator and denominator over the ranks (one all-reduce of
+the two) and divides, as cmx's loss over the global batch, and the backward
+reads the global denominator; without a process group the kernel's own loss
+stands. On CPU tensors both run their plain versions,
+`spark_loss_terms_plain` (with `spark_loss_pallas_plain`, their quotient)
+and `spark_loss_bwd_plain` (cmx's arithmetic in eager torch).
 `spark_loss_pallas.launches` and `spark_loss_bwd.launches` count the two
 kernels' launches.
 
@@ -30,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from cmx_torch.ops import _build
+from cmx_torch.parallel import mesh
 
 PATCH = 16  # the patch the K3 kernels take (DOWNSAMPLE_RATIO)
 _LOSS_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,15 +58,25 @@ def masked_l2_plain(rec, imgs, active_grid, patch: int = 16):
     return l2 * (1.0 - active_grid.float())
 
 
-def spark_loss_pallas_plain(rec, imgs, active_grid, patch: int = 16):
-    """Plain version of the forward kernel (also its CPU path)."""
+def spark_loss_terms_plain(rec, imgs, active_grid, patch: int = 16):
+    """Plain version of the forward kernel's numerator sum(masked l2) and
+    denominator sum(1 - active) + 1e-8 (also its CPU path)."""
     masked_l2 = masked_l2_plain(rec, imgs, active_grid, patch)
-    return masked_l2.sum() / ((1.0 - active_grid.float()).sum() + 1e-8)
+    return masked_l2.sum(), (1.0 - active_grid.float()).sum() + 1e-8
 
 
-def spark_loss_bwd_plain(rec, imgs, active_grid, g, patch: int = 16):
+def spark_loss_pallas_plain(rec, imgs, active_grid, patch: int = 16):
+    """Plain version of the forward kernel's loss (also its CPU path)."""
+    num, denom = spark_loss_terms_plain(rec, imgs, active_grid, patch)
+    return num / denom
+
+
+def spark_loss_bwd_plain(rec, imgs, active_grid, g, patch: int = 16,
+                         denom=None):
     """Plain version of the backward kernel (also its CPU path): cmx's
-    closed-form gradient, the patch statistics recomputed from imgs."""
+    closed-form gradient, the patch statistics recomputed from imgs, and
+    the denominator too unless `denom` gives it (under data parallel, the
+    global one)."""
     p = patch
     b, h, w = imgs.shape
     fh, fw = h // p, w // p
@@ -71,7 +86,8 @@ def spark_loss_bwd_plain(rec, imgs, active_grid, g, patch: int = 16):
     norm = (img4 - mean) * torch.rsqrt(var + 1e-6)
     rec4 = rec.float().reshape(b, fh, p, fw, p)
     masked = (1.0 - active_grid.float()).reshape(b, fh, 1, fw, 1)
-    denom = (1.0 - active_grid.float()).sum() + 1e-8
+    if denom is None:
+        denom = (1.0 - active_grid.float()).sum() + 1e-8
     drec = 2.0 * (rec4 - norm) * masked / (p * p * denom)
     return (g * drec).reshape(b, h, w).to(rec.dtype)
 
@@ -118,30 +134,33 @@ def _scratch(dev: torch.device, blocks: int):
 
 
 def _spark_loss_cuda(rec, imgs, active_grid, patch):
-    """(loss, denom), 0-d fp32, from one launch of the forward kernel."""
+    """(loss, num, denom), 0-d fp32, from one launch of the forward
+    kernel."""
     rec, imgs, act, rec_bf16, act_bf16 = _loss_operands(rec, imgs,
                                                          active_grid, patch)
     b, h, w = imgs.shape
     dev = imgs.device
     lib = _build.load("spark_loss")
     ticket, partials = _scratch(dev, b * (h // patch))
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    denom = torch.empty((), dtype=torch.float32, device=dev)
+    out = torch.empty(3, dtype=torch.float32, device=dev)
+    loss, num, denom = out[0], out[1], out[2]
     err = lib.cmx_spark_loss_fwd(
         rec.data_ptr(), imgs.data_ptr(), act.data_ptr(), loss.data_ptr(),
-        denom.data_ptr(), partials.data_ptr(), ticket.data_ptr(), b, h, w,
-        rec_bf16, act_bf16, torch.cuda.current_stream(dev).cuda_stream)
+        num.data_ptr(), denom.data_ptr(), partials.data_ptr(),
+        ticket.data_ptr(), b, h, w, rec_bf16, act_bf16,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spark_loss_pallas")
     spark_loss_pallas.launches += 1
-    return loss, denom
+    return loss, num, denom
 
 
 def _spark_loss(rec, imgs, active_grid, patch):
-    """(loss, the denominator the backward kernel reads, or None on the
-    CPU)."""
+    """(loss, its numerator, its denominator: the one the backward
+    reads), 0-d fp32."""
     _build.record("spark_loss_pallas", rec, imgs, active_grid, patch)
     if imgs.device.type == "cpu":
-        return spark_loss_pallas_plain(rec, imgs, active_grid, patch), None
+        num, denom = spark_loss_terms_plain(rec, imgs, active_grid, patch)
+        return num / denom, num, denom
     return _spark_loss_cuda(rec, imgs, active_grid, patch)
 
 
@@ -185,10 +204,10 @@ def spark_loss_bwd(rec: torch.Tensor, imgs: torch.Tensor,
     """dL/drec of spark_loss_pallas for the cotangent g (0-d), in rec's
     dtype. On the card `denom` is the forward kernel's denominator
     sum(1 - active) + 1e-8 (read on the device, no host synchronisation);
-    the plain version recomputes it."""
+    the plain version recomputes it unless it is given."""
     _build.record("spark_loss_bwd", rec, imgs, active_grid, g, denom, patch)
     if imgs.device.type == "cpu":
-        return spark_loss_bwd_plain(rec, imgs, active_grid, g, patch)
+        return spark_loss_bwd_plain(rec, imgs, active_grid, g, patch, denom)
     if denom is None:
         raise ValueError("spark_loss_bwd on the card needs the forward "
                          "kernel's denominator")
@@ -285,11 +304,19 @@ bn_relu_mask_pallas.launches = 0
 
 class SparkLoss(torch.autograd.Function):
     """The forward kernel and cmx's closed-form backward (the backward
-    kernel on the card). imgs and the active grid are data (no gradient)."""
+    kernel on the card). imgs and the active grid are data (no gradient).
+    Under data parallel the loss is the global batch's (the ranks'
+    numerators over their denominators, both summed; each rank's
+    denominator carries the 1e-8, which no count >= 1 in fp32 keeps), the
+    same on every rank, and the backward gives the rank's own part of its
+    gradient."""
 
     @staticmethod
     def forward(ctx, rec, imgs, active_grid, patch):
-        loss, denom = _spark_loss(rec, imgs, active_grid, patch)
+        loss, num, denom = _spark_loss(rec, imgs, active_grid, patch)
+        if mesh.active():
+            num, denom = mesh.all_reduce_sum_many(num, denom)
+            loss = num / denom
         ctx.save_for_backward(rec, imgs, active_grid, denom)
         ctx.patch = patch
         return loss

@@ -23,7 +23,12 @@
 cmx's deviations from the reference (per-sample masks, the reduce conv
 drawn once, the head's broadcast fixed, the global-batch InfoNCE) are kept.
 The encoder and decoders run in the step's dtype, unfused, as cmx builds
-them; the necks in fp32.
+them; the necks in fp32. Under data parallel (cmx_torch.parallel.mesh) B is
+the global batch, as in cmx: the draws are made for it and each rank takes
+its rows; a rank's queries are scored against every rank's targets,
+gathered in rank order, with labels arange(b) + rank * b (the reference's
+concat_all_gather, cmunet_head.py:77-85); loss_rc's sums and loss_ct's mean
+are the global batch's; every BN moment, the target's too, is global.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ import torch.nn.functional as F
 from cmx_torch.models.blocks import reset_parameters
 from cmx_torch.models.necks import NonLinearNeck
 from cmx_torch.models.unet import BOTTLENECK_WIDTH, UNetDecoder, UNetEncoder
-from cmx_torch.ops.augment import cmunet_two_views_batch
+from cmx_torch.ops.augment import cmunet_two_views_batch, cmunet_view_draws
 from cmx_torch.ops.masking import random_patch_mask
+from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
 
 REDUCED_WIDTH = 256  # the target's 1x1 reduce: BOTTLENECK_WIDTH -> 256
@@ -123,16 +129,20 @@ def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
                 draws: Optional[dict] = None,
                 extra: Optional[Dict[str, Any]] = None):
         draws = draws or {}
+        bg = mesh.global_batch(imgs.shape[0])
         if augment:
+            d = mesh.rank_slice_draws(cmunet_view_draws(
+                gen, bg, imgs.shape[1], imgs.shape[2], view_size, 31,
+                draws.get("views")))
             v1, v2 = cmunet_two_views_batch(imgs, view_size, 31, crop_impl,
-                                            gen, draws.get("views"))
+                                            gen, d)
         else:
             v1 = v2 = imgs[:, :view_size, :view_size]
         b, h, _ = v1.shape
         active = draws.get("active")
         if active is None:
-            active = random_patch_mask(gen, b, h, patch_size, mask_ratio)
-        active = active.to(v1.device).float()
+            active = random_patch_mask(gen, bg, h, patch_size, mask_ratio)
+        active = mesh.rank_slice(active).to(v1.device).float()
 
         pred_pixel, pred_s, _ = model(v1, active)
         target = extra["target_model"]
@@ -147,13 +157,18 @@ def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
                / torch.sqrt(tgt.var(-1, unbiased=False, keepdim=True) + 1e-6))
         masked = 1.0 - active
         err = torch.square(pred_pixel[:, 1] - tgt)
-        loss_rc = (err * masked).sum() / torch.clamp(masked.sum(), min=1.0)
+        sums = mesh.all_reduce_shared(
+            torch.stack([(err * masked).sum(), masked.sum()]))
+        loss_rc = sums[0] / torch.clamp(sums[1], min=1.0)
 
-        # Contrastive: InfoNCE over the batch.
-        score = _normalize_rows(pred_s) @ _normalize_rows(proj_t).t()
-        labels = torch.arange(b, device=score.device)
-        loss_ct = 2.0 * temperature * F.cross_entropy(score / temperature,
-                                                      labels)
+        # Contrastive: InfoNCE over the global batch, a rank's queries
+        # against every rank's targets.
+        targets = mesh.all_gather_batch(_normalize_rows(proj_t))
+        score = _normalize_rows(pred_s) @ targets.t()
+        labels = (torch.arange(b, device=score.device)
+                  + mesh.info()[0] * b)
+        loss_ct = mesh.global_mean(
+            2.0 * temperature * F.cross_entropy(score / temperature, labels))
         loss = ct_weight * loss_ct + rc_weight * loss_rc
         return loss, TaskAux(metrics={"loss_ct": loss_ct.detach(),
                                       "loss_rc": loss_rc.detach()})

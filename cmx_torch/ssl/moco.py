@@ -13,6 +13,12 @@ cmx/ssl/moco.py:43-224).
     toward the updated online parameters, then the keys enqueued at the
     pointer and ptr = (ptr + B) mod K. The trainer's NaN guard covers all of
     it, and the key BN stats.
+Under data parallel (cmx_torch.parallel.mesh) B is the global batch, as in
+cmx's global-view step: the views' draws are made for it and each rank
+takes its rows; a rank's queries meet its own keys as positives and the
+queue as negatives; the loss and acc1 / acc5 are the global batch's means;
+the keys of every rank enter the queue in rank order and ptr advances by
+B; the key encoder's BN moments are global.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from cmx_torch.models.unet import UNetEncoderGAP
-from cmx_torch.ops.augment import moco_view_aug_batch
+from cmx_torch.ops.augment import moco_view_aug_batch, moco_view_draws
+from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
 
 EMB_DIM = 1024
@@ -63,16 +70,19 @@ def _contrast(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
     l_neg = torch.matmul(q, queue.t())
     logits = torch.cat([l_pos, l_neg], dim=1) / temperature
     labels = torch.zeros((q.shape[0],), dtype=torch.long, device=q.device)
-    loss = F.cross_entropy(logits, labels)
+    loss = mesh.global_mean(F.cross_entropy(logits, labels))
     top5 = torch.topk(logits.detach(), 5, dim=1).indices
-    acc1 = (top5[:, 0] == 0).float().mean()
-    acc5 = (top5 == 0).any(dim=1).float().mean()
-    return loss, {"acc1": acc1, "acc5": acc5}
+    acc = torch.stack([(top5[:, 0] == 0).float().mean(),
+                       (top5 == 0).any(dim=1).float().mean()])
+    acc = mesh.all_reduce_sum(acc / mesh.world_size())
+    return loss, {"acc1": acc[0], "acc5": acc[1]}
 
 
 def _enqueue(queue: torch.Tensor, ptr: torch.Tensor, keys: torch.Tensor):
-    """(new queue, new ptr): keys written at rows ptr..ptr+B-1, ptr advanced
-    by B mod K; the pointer stays on the device (no host synchronisation)."""
+    """(new queue, new ptr): every rank's keys, in rank order, written at
+    rows ptr..ptr+B-1, ptr advanced by the global B mod K; the pointer stays
+    on the device (no host synchronisation)."""
+    keys = mesh.all_gather_batch(keys)
     bs, num = keys.shape[0], queue.shape[0]
     idx = ptr.long() + torch.arange(bs, device=queue.device)
     new_queue = queue.index_copy(0, idx, keys.to(queue.dtype))
@@ -82,13 +92,19 @@ def _enqueue(queue: torch.Tensor, ptr: torch.Tensor, keys: torch.Tensor):
 def _views(imgs, gen, draws, augment, view_size, rotation_method,
            crop_method, crop_impl):
     """The (q, k) views of a batch; draws["q"] / draws["k"] may inject
-    each view's random draws."""
+    each view's random draws, for the global batch (each rank takes its
+    rows)."""
     if not augment:
         return imgs, imgs
     draws = draws or {}
-    return tuple(moco_view_aug_batch(imgs, view_size, rotation_method,
-                                     crop_method, crop_impl, gen,
-                                     draws.get(v)) for v in ("q", "k"))
+    b, h, w = imgs.shape
+    views = []
+    for v in ("q", "k"):
+        d = mesh.rank_slice_draws(moco_view_draws(
+            gen, mesh.global_batch(b), h, w, view_size, draws.get(v)))
+        views.append(moco_view_aug_batch(imgs, view_size, rotation_method,
+                                         crop_method, crop_impl, gen, d))
+    return tuple(views)
 
 
 def _check_divisible(num_negatives: int, bs: int, what: str) -> None:
@@ -118,7 +134,8 @@ def make_moco_task(model: Optional[UNetEncoderGAP] = None, *,
     def loss_fn(model: UNetEncoderGAP, imgs: torch.Tensor,
                 gen: torch.Generator, draws: Optional[dict] = None,
                 extra: Optional[Dict[str, Any]] = None):
-        _check_divisible(num_negatives, imgs.shape[0], "queue")
+        _check_divisible(num_negatives, mesh.global_batch(imgs.shape[0]),
+                         "queue")
         img_q, img_k = _views(imgs, gen, draws, *view_args)
         q = _normalize_rows(model(img_q))
         key_model = extra["key_model"]
@@ -161,7 +178,8 @@ def make_moco_validate(model: UNetEncoderGAP, *, temperature: float = 0.07,
                  imgs: torch.Tensor, gen: Optional[torch.Generator] = None,
                  draws: Optional[dict] = None):
         queue = val_queue["queue"]
-        _check_divisible(queue.shape[0], imgs.shape[0], "val queue")
+        _check_divisible(queue.shape[0], mesh.global_batch(imgs.shape[0]),
+                         "val queue")
         img_q, img_k = _views(imgs, gen, draws, augment, view_size,
                               rotation_method, crop_method, crop_impl)
         key_model = state.extra["key_model"]

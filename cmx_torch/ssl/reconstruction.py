@@ -11,6 +11,9 @@ reference (Genesis_Chest_CT.py:122-125):
     patch 16; per-sample masks, `shared_mask` restores the reference's
     mask[0] broadcast), target = the image; or the masked pixels only with
     `masked_loss_only`.
+Under data parallel the draws are made for the global batch and each rank
+takes its rows, and the losses are the global batch's
+(cmx_torch.parallel.mesh).
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from typing import Optional, Tuple
 import torch
 
 from cmx_torch.models.unet import UNet
-from cmx_torch.ops.genesis import genesis_batch
+from cmx_torch.ops.genesis import genesis_batch, genesis_draws
 from cmx_torch.ops.masking import random_patch_mask
+from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
 
 
@@ -43,11 +47,16 @@ def make_genesis_task(model: Optional[UNet] = None, *,
                 draws: Optional[dict] = None, extra=None):
         draws = draws or {}
         if "x" in draws:
-            x, y = draws["x"].to(imgs.device), draws["y"].to(imgs.device)
+            x, y = (mesh.rank_slice(draws[k]).to(imgs.device)
+                    for k in ("x", "y"))
         else:
-            x, y = genesis_batch(imgs, gen, draws, **rates)
+            b, h, w = imgs.shape
+            d = mesh.rank_slice_draws(genesis_draws(
+                gen, mesh.global_batch(b), h, w, draws))
+            x, y = genesis_batch(imgs, gen, d, **rates)
         pred = model(x)
-        loss = torch.square(pred[:, 0].float() - y.float()).mean()
+        loss = mesh.global_mean(
+            torch.square(pred[:, 0].float() - y.float()).mean())
         return loss, TaskAux(metrics={"mse": loss.detach()})
 
     return Task(name="genesis", loss_fn=loss_fn), model
@@ -67,16 +76,18 @@ def make_mae_task(model: Optional[UNet] = None, *, mask_ratio: float = 0.5,
         b, h, _ = imgs.shape
         active = (draws or {}).get("active")
         if active is None:
-            active = random_patch_mask(gen, b, h, patch_size, mask_ratio,
-                                       shared_mask)
-        active = active.to(imgs.device).float()
+            active = random_patch_mask(gen, mesh.global_batch(b), h,
+                                       patch_size, mask_ratio, shared_mask)
+        active = mesh.rank_slice(active).to(imgs.device).float()
         pred = model(imgs * active)
         err = torch.square(pred[:, 0].float() - imgs)
         if masked_loss_only:
             masked = 1.0 - active
-            loss = (err * masked).sum() / torch.clamp(masked.sum(), min=1.0)
+            sums = mesh.all_reduce_shared(
+                torch.stack([(err * masked).sum(), masked.sum()]))
+            loss = sums[0] / torch.clamp(sums[1], min=1.0)
         else:
-            loss = err.mean()
+            loss = mesh.global_mean(err.mean())
         return loss, TaskAux(metrics={"mse": loss.detach()})
 
     return Task(name="mae", loss_fn=loss_fn), model

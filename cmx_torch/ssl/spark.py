@@ -19,8 +19,9 @@ from cmx_torch.models.blocks import Conv, MaskedBatchNorm, reset_parameters
 from cmx_torch.models.decoders import LightDecoder
 from cmx_torch.models.unet import (BOTTLENECK_WIDTH, DOWNSAMPLE_RATIO,
                                    ENCODER_WIDTHS, UNetDecoder, UNetEncoder)
-from cmx_torch.ops.augment import spark_pretrain_aug
+from cmx_torch.ops.augment import spark_aug_draws, spark_pretrain_aug
 from cmx_torch.ops.masking import spark_active_mask, upsample_mask
+from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
 
 
@@ -102,7 +103,8 @@ class SparKModel(nn.Module):
 
 def spark_loss(rec: torch.Tensor, imgs: torch.Tensor,
                active_grid: torch.Tensor) -> torch.Tensor:
-    """Per-patch-normalized L2 on masked patches (two-pass variance)."""
+    """Per-patch-normalized L2 on masked patches (two-pass variance); its
+    sums are over the global batch under data parallel."""
     b, h, w = imgs.shape
     p = DOWNSAMPLE_RATIO
     fh, fw = h // p, w // p
@@ -118,7 +120,9 @@ def spark_loss(rec: torch.Tensor, imgs: torch.Tensor,
     inp = ((inp - mean) / std).detach()
     l2 = ((out - inp) ** 2).mean(-1)
     non_active = 1.0 - active_grid.reshape(b, -1).float()
-    return (l2 * non_active).sum() / (non_active.sum() + 1e-8)
+    sums = mesh.all_reduce_shared(
+        torch.stack([(l2 * non_active).sum(), non_active.sum()]))
+    return sums[0] / (sums[1] + 1e-8)
 
 
 def make_spark_task(model: Optional[SparKModel] = None, *,
@@ -129,22 +133,27 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
 
     `draws` may inject the step's random draws, as tests do with cmx's:
     "crop" (B,4) windows, "flip" (B,) bools, "active" (B,f,f); whatever is
-    missing is drawn from `gen`. pallas_loss=True runs the loss through the
-    K3 kernel with its closed-form backward."""
+    missing is drawn from `gen`. Draws are for the global batch (B = the
+    rank's batch times the world size) and each rank takes its rows.
+    pallas_loss=True runs the loss through the K3 kernel with its
+    closed-form backward."""
     model = model or SparKModel(mask_ratio=mask_ratio)
 
     def loss_fn(model: SparKModel, imgs: torch.Tensor, gen: torch.Generator,
                 draws: Optional[Dict[str, torch.Tensor]] = None, extra=None):
         draws = draws or {}
+        b, h, w = imgs.shape
+        bg = mesh.global_batch(b)
         if augment:
-            imgs = spark_pretrain_aug(imgs, input_size, gen,
-                                      crop=draws.get("crop"),
-                                      flip=draws.get("flip"))
+            d = mesh.rank_slice_draws(spark_aug_draws(
+                gen, bg, h, w, input_size,
+                {k: draws.get(k) for k in ("crop", "flip")}))
+            imgs = spark_pretrain_aug(imgs, input_size, gen, **d)
         f = imgs.shape[1] // DOWNSAMPLE_RATIO
         active = draws.get("active")
         if active is None:
-            active = spark_active_mask(gen, imgs.shape[0], f, model.mask_ratio)
-        active = active.to(imgs.device).float()
+            active = spark_active_mask(gen, bg, f, model.mask_ratio)
+        active = mesh.rank_slice(active).to(imgs.device).float()
         rec = model(imgs, active)
         if pallas_loss:
             from cmx_torch.ops.pallas_ops import spark_loss_pallas_trainable

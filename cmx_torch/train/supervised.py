@@ -15,7 +15,8 @@ import torch
 
 from cmx_torch.eval.metrics import segmentation_loss, segmentation_metrics
 from cmx_torch.models.unet import UNet
-from cmx_torch.ops.augment import finetune_train_aug
+from cmx_torch.ops.augment import finetune_draws, finetune_train_aug
+from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
 
 
@@ -24,7 +25,9 @@ def make_supervised_task(model: Optional[UNet] = None, augment: bool = True,
     """The task: loss_fn(model, (imgs, masks), gen, draws) -> (loss, TaskAux).
 
     `draws` may inject the augmentation's draws (`finetune_draws`'s names);
-    whatever is missing is drawn from `gen`. The step's metrics are the
+    whatever is missing is drawn from `gen`, for the global batch under
+    data parallel (each rank takes its rows; the loss and metrics are the
+    global batch's, cmx_torch.eval.metrics). The step's metrics are the
     cheap set (dice / CE / IoU) unless cheap_metrics=False; soft_clDice runs
     at validation, as in cmx."""
     model = model or UNet(out_classes=2)
@@ -33,7 +36,10 @@ def make_supervised_task(model: Optional[UNet] = None, augment: bool = True,
                 draws: Optional[Dict[str, torch.Tensor]] = None, extra=None):
         imgs, masks = batch
         if augment:
-            imgs, masks = finetune_train_aug(imgs, masks, gen, draws)
+            b, h, w = imgs.shape
+            d = mesh.rank_slice_draws(finetune_draws(
+                gen, mesh.global_batch(b), h, w, draws))
+            imgs, masks = finetune_train_aug(imgs, masks, gen, d)
         logits = model(imgs)
         loss = segmentation_loss(logits, masks)
         metrics = {k: v.detach() for k, v in segmentation_metrics(

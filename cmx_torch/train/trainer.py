@@ -11,6 +11,13 @@ update, the post-update, and the NaN guard, which keeps parameters,
 optimizer state, BN running stats and every tensor of `extra` when the loss
 or the gradient norm is not finite (decided on the device; no host
 synchronisation).
+
+Under data parallel (cmx_torch.parallel.mesh) every rank runs the step on
+its B/W rows of the global batch: the task's draws are made for the global
+batch and sliced (`mesh.rank_slice`), its loss is the global loss on every
+rank, and the gradients are summed over the ranks in one all-reduce before
+the norm, so the guard, the update and the post-update are the same on
+every rank and the replicas stay equal bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from cmx_torch.parallel import mesh
 from cmx_torch.train.optim import global_grad_norm
 from cmx_torch.train.state import TrainState
 
@@ -71,8 +79,9 @@ def make_train_step(task: Task, tx) -> Callable:
         params = tx.params
         loss, aux = task.loss_fn(model, batch, gen, draws, state.extra)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        grads = mesh.all_reduce_tensors(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)])
         gnorm = global_grad_norm(grads)
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
         tx.step(grads, finite)

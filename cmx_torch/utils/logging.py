@@ -5,8 +5,9 @@ Counterparts of the reference's observability stack (SURVEY §5):
   * AverageValueMeter online mean/std (Finetuning/train.py:43-79)
   * SmoothedValue / MetricLogger with iter+data timing
     (Spark/utils/misc.py:192-339) — cross-rank sync is unnecessary here:
-    one process
-  * JSON-line epoch log (Spark/utils/arg_util.py:74-93)
+    the step's metrics are already the global batch's on every rank
+  * JSON-line epoch log (Spark/utils/arg_util.py:74-93), written by rank 0
+    alone under data parallel
   * stdout/stderr tee to file (Spark/utils/misc.py:72-86)
 """
 
@@ -20,6 +21,8 @@ import sys
 import time
 from collections import defaultdict, deque
 from typing import Dict, Iterable
+
+from cmx_torch.parallel.dist import on_main
 
 
 class AverageMeter:
@@ -161,6 +164,9 @@ class JsonlLogger:
         self._stamped = False
 
     def write(self, **fields):
+        on_main(self._write, fields)
+
+    def _write(self, fields: dict) -> None:
         fields.setdefault("time", datetime.datetime.now().isoformat())
         if not self._stamped:
             for k, v in git_info().items():

@@ -48,10 +48,10 @@ def spark_loss_work(B, H, W, rec_bytes, act_bytes=4, patch=16
                     ) -> Tuple[float, float]:
     """K3 forward: reads rec (rec_bytes a pixel: 4 on the main path, whose
     decoder returns fp32; 2 in bf16), imgs (fp32) and the active grid
-    (act_bytes a cell), writes the loss and the denominator; about ten flops
-    a pixel."""
+    (act_bytes a cell), writes the loss, its numerator and its denominator;
+    about ten flops a pixel."""
     cells = B * (H // patch) * (W // patch)
-    return (float(B * H * W * (rec_bytes + 4) + act_bytes * cells + 8),
+    return (float(B * H * W * (rec_bytes + 4) + act_bytes * cells + 12),
             10.0 * B * H * W)
 
 

@@ -60,13 +60,21 @@ def test_sampler_yields_cmx_index_stream(n, batch, seed):
 
 
 def test_single_process_layout(monkeypatch):
+    """Without WORLD_SIZE no process group is made and the layout is (0,
+    1); WORLD_SIZE=2 without the launcher's other variables raises, naming
+    what is missing."""
     from cmx_torch.parallel import dist
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert dist.process_info() == (0, 1)
-    dist.initialize_distributed()
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="Data parallel"):
-        dist.initialize_distributed()
+    assert dist.initialize_distributed("cpu") is False
+    assert dist.process_info() == (0, 1)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR.*torchrun"):
+        dist.initialize_distributed("cpu")
+    assert dist.process_info() == (0, 1)
 
 
 def _files(d):
@@ -433,14 +441,19 @@ def test_cli_device_defaults_to_cuda(tmp_path):
 def test_cli_refuses_tensorboard_and_unported_tasks(tmp_path, small_widths,
                                                    monkeypatch):
     """The options still to port raise, naming their ROADMAP item: MoCo's
-    bank crop and a run of more than one process."""
+    bank crop. (Runs of more than one process are ported: the 2-rank CLI
+    run is in test_torch_port_dp.py; here a WORLD_SIZE without the
+    launcher's other variables raises before anything is written.)"""
     with pytest.raises(NotImplementedError, match="MoCo view-pipeline"):
         _run(tmp_path, "bank", "moco", [
             "task.crop_impl=bank", "data.synthetic_n=8",
             "task.num_negatives=16", "task.view_size=24", "train.epochs=1"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Data parallel"):
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
         _run(tmp_path, "dp", "spark", ["train.epochs=1"])
+    assert not (tmp_path / "dp").exists()
 
 
 def test_cli_moco_validates_and_stops_early(tmp_path, small_widths):

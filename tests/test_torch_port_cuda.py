@@ -18,8 +18,8 @@ Tolerances: bf16 outputs rel
 1e-3 (summation order); the fp32 crop (K4) rel 1e-5 (its weights equal the
 plain version's op for op; the products sum in another order); K5 in fp32
 rel 1e-6 (Triton fuses x*scale+bias into one FMA, the plain version rounds
-twice); K3's forward loss rel 1e-5 and its backward one ulp of rec's dtype
-at the largest |drec| in bf16, eight in fp32: the patch sums and the
+twice); K3's forward loss and numerator rel 1e-5 and its backward one ulp
+of rec's dtype at the largest |drec| in bf16, eight in fp32: the patch sums and the
 cross-block sum run in another order than the plain version's. The Genesis
 chain on the card against the CPU with the same draws: bit for bit but for
 the fit remap (1e-4 of the image's span), and no host sync; the decoder
@@ -170,7 +170,7 @@ def test_spark_loss_kernels_match_plain(dev, B, H, rec_dtype, grid):
     device."""
     rec, imgs, act = _loss_inputs(dev, B, H, grid, rec_dtype)
     n0, nb0 = po.spark_loss_pallas.launches, po.spark_loss_bwd.launches
-    loss, denom = po._spark_loss(rec, imgs, act, 16)
+    loss, _, denom = po._spark_loss(rec, imgs, act, 16)
     ref = po.spark_loss_pallas_plain(rec, imgs, act)
     g = torch.tensor(0.7, device=dev)
     drec = po.spark_loss_bwd(rec, imgs, act, g, denom)
@@ -193,12 +193,30 @@ def test_spark_loss_kernels_give_the_same_bits_twice(dev, rec_dtype):
     """The forward sums its blocks' partials in a fixed order (no float
     atomics), so two launches on the same inputs agree bit for bit."""
     rec, imgs, act = _loss_inputs(dev, 32, 256, "random", rec_dtype, seed=4)
-    a, da = po._spark_loss(rec, imgs, act, 16)
-    b, db = po._spark_loss(rec, imgs, act, 16)
+    a, _, da = po._spark_loss(rec, imgs, act, 16)
+    b, _, db = po._spark_loss(rec, imgs, act, 16)
     g = torch.tensor(1.0, device=dev)
     assert torch.equal(a, b) and torch.equal(da, db)
     assert torch.equal(po.spark_loss_bwd(rec, imgs, act, g, da),
                        po.spark_loss_bwd(rec, imgs, act, g, db))
+
+
+@pytest.mark.parametrize("grid", ["random", "visible", "masked"])
+@pytest.mark.parametrize("rec_dtype", [torch.bfloat16, torch.float32])
+def test_spark_loss_forward_writes_its_numerator(dev, rec_dtype, grid):
+    """K3's forward also writes the numerator sum(l2 * masked) (data
+    parallel sums it over the ranks): against the plain version's to rel
+    1e-5 (sum order), the denominator exactly, and numerator / denominator
+    is the kernel's own loss bit for bit (one launch)."""
+    rec, imgs, act = _loss_inputs(dev, 32, 256, grid, rec_dtype, seed=6)
+    n0 = po.spark_loss_pallas.launches
+    loss, num, denom = po._spark_loss(rec, imgs, act, 16)
+    ref_num, ref_denom = po.spark_loss_terms_plain(rec, imgs, act)
+    torch.cuda.synchronize()
+    assert po.spark_loss_pallas.launches == n0 + 1
+    assert abs(float(num) - float(ref_num)) <= 1e-5 * abs(float(ref_num))
+    assert float(denom) == float(ref_denom)
+    assert torch.equal(num / denom, loss)
 
 
 def test_spark_loss_autograd_runs_one_launch_each_way(dev):
