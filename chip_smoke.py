@@ -70,6 +70,47 @@ queue 65536 x 1024, T 0.07):
      task.crop_impl=scale_translate (no kernel of the port) from the same
      weights, queue, images and draws, checked, timed and profiled the same
      way, its loss equal to the K4 run's step for step (bf16 margin).
+MoCo's fast view pipeline (PRESETS["moco_fast"]: task.rotation_method
+shear3, task.crop_impl bank_fused) and the view options, after the CLI
+phase (MF-CLI reads its corpus):
+  MF. PRESETS["moco_fast"] at MOCO_BATCH, full widths, 256^2 -> 224^2,
+     bf16, from phase 5's weights, queue and images: one step recorded
+     with no kernel of the port called, MOCO_STEPS steps checked as phase 5
+     checks its steps, no launch; step time, img/s, peak memory, a two-step
+     profile, beside phase 5's K4 step (moco + crop_impl=pallas) from this
+     call; then LIB's profiling.trace of one MF step, its Chrome trace read
+     back (fails without device kernels);
+  VIEWS. the view pipeline alone at MOCO_BATCH for every rotation_method
+     (nearest, shear3, bilinear) x crop_impl (scale_translate, pallas,
+     einsum, einsum_bf16, bank, bank_fused), and CM-UNet's views (the chain,
+     bank, bank_fused) at CM_BATCH, each timed by CUDA events; the first
+     VIEW_CHECK images held against the CPU with the same draws: the
+     rotation (nearest and shear3 at most PIXEL_SHARE of the pixels apart,
+     an ulp of sin/cos can flip a rounding; bilinear within the bound of
+     `bilinear_rot_tol`, derived from the images' neighbour steps and the
+     shift an ulp of sin/cos gives its sample coordinates), then the
+     CPU's crop, blur, flips and noise on the card's rotation (rel 1e-5,
+     einsum_bf16 2e-2); each pallas view's whole batch held against the
+     same view through the plain crop on the card (rel 1e-5); the bank rows
+     fetched on the card equal the numpy bank bit for bit (linear 256 ->
+     224, cubic 256 -> 256); K4 launched once by each pallas view, never by
+     the others (those launches count in K4's row); each view timed
+     VIEW_REPEATS times (median, min, max);
+  CMB. CM1's step with task.crop_impl=bank_fused at CM_BATCH: 2 steps,
+     finite losses, no kernel of the port launched;
+  MF-CLI. `cmx_torch.cli.pretrain.main` with --task moco_fast --preset, one
+     epoch at batch CM_CLI_BATCH on the CLI phase's corpus, with validation
+     (`one_epoch_cli`): no launch, log.jsonl finite, encoder.npz reloaded
+     bit for bit, its seconds. `python3 chip_smoke.py --views` builds the
+     kernels and runs MF (timing phase 5's K4 step itself), VIEWS, CMB and
+     MF-CLI (on a corpus of its own) alone;
+  LIB. every op of cmx_torch.ops.augment_extra and auto_augment (the
+     fourteen ops through apply_op at level 7, auto_augment, rand_augment)
+     at MOCO_BATCH of 256^2 with draws made on the card, timed, its first
+     LIB_CHECK images against the CPU with the same draws (rel 1e-5; the
+     nearest geometric ops and the policies by the share of pixels apart,
+     PIXEL_SHARE); s2d's phase_conv5 against F.conv2d at S2D_SHAPE (fp32,
+     rel S2D_TOL), both timed.
 The pretrain CLI (FUSED_IMPL "flat"):
   CLI. `cmx_torch.cli.pretrain.main` run twice in this process, as a user
      runs it (`cli_phase`): SparK at full width through K1-K3 on a synthetic
@@ -209,7 +250,8 @@ nothing past world size 1 on NCCL is claimed):
      losses. `python3 chip_smoke.py --dp` builds the kernels and runs the
      DP phases alone.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
-as JSON (the SparK/MoCo paths' rows, as before, K1's and K2's launches
+as JSON (the SparK/MoCo paths' rows, as before, K4's launches counting
+VIEWS' pallas views too, K1's and K2's launches
 counting MAE1's, G1's, DV's and RM's 8-step runs too, K3's DV's and RM's;
 K3's row sums its forward and backward, which it also lists under "parts"),
 the card's name and power limit (nvidia-smi), and {"ok": true, "device":
@@ -1178,7 +1220,7 @@ def moco_phase(batch: int, steps: int, iters: int):
         fail("the MoCo step through K4 disagrees with the plain crop")
     del state, step, imgs
     torch.cuda.empty_cache()
-    return kern, launches
+    return kern, launches, step_ms
 
 
 CLI_EPOCHS = (2, 3)  # the first call's epochs, then the resumed call's
@@ -2262,6 +2304,434 @@ def ev_phase(encoder: str, data_dir: str) -> dict:
 
 DP2_BATCH = 16  # DP2: each of the two ranks' batch (the one process: 32)
 DP2_STEPS = 4   # DP2: steps a rank takes (the first two are warm-up)
+# ------------------------------------------------ MoCo's fast view pipeline
+
+VIEW_ROTATIONS = ("nearest", "shear3", "bilinear")
+VIEW_IMPLS = ("scale_translate", "pallas", "einsum", "einsum_bf16", "bank",
+              "bank_fused")
+VIEW_CHECK = 4  # images of each card view held against the CPU
+VIEW_REPEATS = 5  # VIEWS times each view this many times: median, min, max
+LIB_CHECK = 8   # images of each LIB op held against the CPU
+# the CPU tests' tolerances: rel 1e-5 of the largest entry, einsum_bf16's
+# bf16 margin 2e-2, the nearest rotations' share of differing pixels 1e-3
+VIEW_TOL = {"einsum_bf16": 2e-2}
+PIXEL_SHARE = 1e-3
+# the bilinear rotation, card against CPU (`bilinear_rot_tol`): the source
+# coordinate c*y - s*x + centre (|x|, |y| <= 127.5 at 256^2) takes cos and
+# sin from each side's library, which may differ by up to 3 ulps (CUDA's
+# sinf/cosf are within 2 ulps, the CPU's within 1; an ulp below 1 is at most
+# 2^-24), so the coordinate moves by up to 2 * 127.5 * 3 * 2^-24 = 4.6e-5
+# px, plus half an ulp of each product (127.5: 3.8e-6) and of each of the
+# two sums (255: 7.6e-6): BILINEAR_SHIFT_PX in all. A bilinear sample moves
+# by at most that shift times the largest step between neighbours along
+# each axis of the zero-padded image, plus the rounding of its four terms
+# (8 ulps of the largest value). The CPU test, both sides' sin/cos on the
+# CPU, holds 1e-5.
+BILINEAR_SHIFT_PX = 2 * 127.5 * 3 * 2.0 ** -24 + 2 * 3.8e-6 + 2 * 7.6e-6
+# S2D's phase_conv5 against F.conv2d, fp32 (TF32 off): cuDNN may pick a
+# Winograd or FFT algorithm, which rounds otherwise than a direct sum
+S2D_TOL = 1e-4
+S2D_SHAPE = (32, 64, 64, 256)  # batch, Cin, Cout, side
+
+
+def make_moco_fast_cfg(batch: int):
+    """PRESETS["moco_fast"] (shear3, bank_fused) at full width: 256^2
+    images, 224^2 views, bf16, SGD, queue 65536."""
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.config.presets import PRESETS
+
+    cfg = PRESETS["moco_fast"](Config())
+    apply_overrides(cfg, [f"train.batch_size={batch}", "data.image_size=256"])
+    return cfg
+
+
+def mf_phase(batch: int, steps: int, k4_ms, work: Path) -> dict:
+    """Phase MF (see the module docstring). `k4_ms` is phase 5's K4 step
+    time from this call, or None (--views), when MF times that step first.
+    Returns its numbers."""
+    import torch
+
+    from cmx_torch.utils.profiling import trace
+
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    if k4_ms is None:
+        state, step, imgs = make_step(make_moco_cfg(batch, "pallas"))
+        record_step(state, step, imgs)
+        k4_ms, _ = moco_run(state, step, imgs, steps, "MF: phase 5's K4 step")
+        del state, step, imgs
+        torch.cuda.empty_cache()
+    cfg = make_moco_fast_cfg(batch)
+    torch.cuda.reset_peak_memory_stats()
+    state, step, imgs = make_step(cfg)  # phase 5's weights, queue, images
+    print(f"MF: PRESETS['moco_fast'] rotation_method="
+          f"{cfg.task.rotation_method} crop_impl={cfg.task.crop_impl}, "
+          f"batch {batch}, images {tuple(imgs.shape)}, views "
+          f"{cfg.task.view_size}^2", flush=True)
+    calls, loss0 = record_step(state, step, imgs)
+    print(f"MF recorded step: loss {loss0:.6f}, kernel calls "
+          f"{[name for name, _ in calls]} (expected none)", flush=True)
+    if calls:
+        fail("the moco_fast step called a kernel of the port")
+    for fn in wrappers.values():
+        fn.launches = 0
+    step_ms, _ = moco_run(state, step, imgs, steps, "MF moco_fast")
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        fail(f"the moco_fast steps launched kernels of the port: {launches}")
+    profile_steps(lambda: step(state, imgs), 2, step_ms, "MF moco_fast")
+    # LIB's profiling.trace: one MF step, its Chrome trace read back
+    with trace(str(work / "mf_trace"), "mf_step.json",
+               torch.device("cuda")) as path:
+        step(state, imgs)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"LIB profiling.trace of one MF step: {path} ({len(events)} "
+          f"events, {n_kernels} device kernels)", flush=True)
+    if not n_kernels:
+        fail("profiling.trace wrote no device kernel of the MF step")
+    print(f"MF (same call): moco_fast step_ms={step_ms:.3f} img_per_s="
+          f"{batch / step_ms * 1e3:.2f} peak {peak:.2f} GiB; phase 5's K4 "
+          f"step (moco + crop_impl=pallas) step_ms={k4_ms:.3f} img_per_s="
+          f"{batch / k4_ms * 1e3:.2f} (moco_fast/K4 {step_ms / k4_ms:.3f})",
+          flush=True)
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "k4_ms": k4_ms, "peak_gib": peak}
+
+
+def _check_view(label: str, got, ref, tol: float) -> float:
+    import torch
+
+    err = rel_err(got.cpu(), ref)[1]
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        fail(f"VIEWS {label}: the card's view is not the CPU's (rel "
+             f"{err:.3e}, tolerance {tol:g})")
+    return err
+
+
+def _check_bank_rows(d: dict, size: int, out: int, method: str) -> None:
+    """The rows bank_axis_weights fetches on the card for the windows of
+    `d["box"]`, both axes, equal the numpy bank indexed on the host."""
+    import numpy as np
+
+    from cmx_torch.ops import augment as ta
+
+    chi, y0i, cwi, x0i = ta.bank_windows(d["box"], size, size)
+    for axis, ch, off in (("h", chi, y0i), ("w", cwi, x0i)):
+        lo, hi = ta.crop_ch_range(size, ta.MOCO_SCALE, ta.MOCO_RATIO, size,
+                                  axis=axis)
+        got = ta.bank_axis_weights(size, out, method, ch, off, lo,
+                                   hi).cpu().numpy()
+        bank = ta._crop_weight_bank(size, out, method, lo, hi)
+        rows = (np.arange(size)[None, :] - off.cpu().numpy()[:, None]
+                + ta._BANK_PAD)
+        inside = (rows >= 0) & (rows < bank.shape[1])
+        want = bank[(ch.cpu().numpy() - lo)[:, None],
+                    np.clip(rows, 0, bank.shape[1] - 1)]
+        want = np.where(inside[:, :, None], want, np.float32(0.0))
+        if not np.array_equal(got, want):
+            fail(f"VIEWS: the bank rows fetched on the card ({method}, axis "
+                 f"{axis}) are not the numpy bank's")
+    print(f"VIEWS bank rows ({method}, {size} -> {out}, both axes, "
+          f"{ch.shape[0]} windows): equal to the numpy bank bit for bit",
+          flush=True)
+
+
+def bilinear_rot_tol(imgs) -> tuple:
+    """(rel bound, steps) for the bilinear rotation of the (B, H, W)
+    `imgs`, card against CPU: BILINEAR_SHIFT_PX times the sum of the largest
+    neighbour steps along y and x of the zero-padded images, plus 8 ulps of
+    the largest value, over the largest value."""
+    import torch
+    import torch.nn.functional as F
+
+    x = F.pad(imgs.float(), (1, 1, 1, 1))
+    gy = float((x[:, 1:] - x[:, :-1]).abs().max())
+    gx = float((x[:, :, 1:] - x[:, :, :-1]).abs().max())
+    top = float(imgs.abs().max())
+    eps = float(torch.finfo(torch.float32).eps)
+    return (BILINEAR_SHIFT_PX * (gy + gx) + 8 * eps * top) / top, (gy, gx)
+
+
+def _time_spread(fn, iters: int) -> tuple:
+    """(median, min, max) ms of VIEW_REPEATS timings of fn (CUDA events)."""
+    runs = sorted(time_ms(fn, iters) for _ in range(VIEW_REPEATS))
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
+def views_phase(batch: int, cm_batch: int, iters: int) -> dict:
+    """Phase VIEWS (see the module docstring). Returns {"ms": view ->
+    ms, "k4": K4's launches in the checked pallas views}."""
+    import torch
+
+    from cmx_torch.ops import augment as ta
+    from cmx_torch.ops import pallas_crop as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    imgs = torch.randn((batch, 256, 256), generator=gen, device="cuda") + 1.0
+    d = ta.moco_view_draws(gen, batch, 256, 256, 224)
+    small = {k: v[:VIEW_CHECK].cpu() for k, v in d.items()}
+    cpu_imgs = imgs[:VIEW_CHECK].cpu()
+    _check_bank_rows(d, 256, 224, "linear")
+    ms, k4 = {}, 0
+    for rot_m in VIEW_ROTATIONS:
+        rot = ta.rotate_batch(imgs, d["angle"], d["rot_apply"], rot_m)
+        rot_cpu = ta.rotate_batch(cpu_imgs, small["angle"], small["rot_apply"],
+                                  rot_m)
+        if rot_m == "bilinear":
+            tol, (gy, gx) = bilinear_rot_tol(cpu_imgs)
+            how = (f"rel {_check_view(rot_m, rot[:VIEW_CHECK], rot_cpu, tol):.3e}"
+                   f" (bound {tol:.3e}: neighbour steps y {gy:.4f}, x "
+                   f"{gx:.4f}, shift {BILINEAR_SHIFT_PX:.3e} px)")
+        else:
+            share = float((rot[:VIEW_CHECK].cpu() != rot_cpu).float().mean())
+            how = f"{share:.3e} of the pixels differ"
+            if share > PIXEL_SHARE:
+                fail(f"VIEWS {rot_m} rotation: {how} (at most {PIXEL_SHARE})")
+        print(f"VIEWS {rot_m} rotation on the card against the CPU: {how}",
+              flush=True)
+        for impl in VIEW_IMPLS:
+            label = f"{rot_m}/{impl}"
+
+            def view():
+                return ta.moco_view_aug_batch(imgs, 224, rot_m, "linear",
+                                              impl, draws=d)
+
+            pc.crop_resize_pallas.launches = 0
+            out = view()
+            torch.cuda.synchronize()
+            n = pc.crop_resize_pallas.launches
+            if n != (impl == "pallas"):
+                fail(f"VIEWS {label}: K4 launched {n} times, expected "
+                     f"{int(impl == 'pallas')}")
+            k4 += n
+            # the CPU's tail on the card's rotation: the crop, blur, flips
+            # and noise held alone (the rotation is held above)
+            ref = ta.moco_view_tail(rot[:VIEW_CHECK].cpu(), small, 224,
+                                    "linear", impl)
+            err = _check_view(label, out[:VIEW_CHECK], ref,
+                              VIEW_TOL.get(impl, 1e-5))
+            how = f"rel err against the CPU {err:.3e}"
+            if impl == "pallas":  # K4 over the whole batch, plain crop on card
+                plain = ta.moco_view_tail(rot, d, 224, "linear",
+                                          "scale_translate")
+                how += (", whole batch against the plain crop on the card "
+                        f"{_check_view(label, out, plain.cpu(), 1e-5):.3e}")
+            ms[label], lo, hi = _time_spread(view, iters)
+            print(f"VIEWS {label}: {ms[label]:.3f} ms (median of "
+                  f"{VIEW_REPEATS}, {lo:.3f}-{hi:.3f}) for {batch} views of "
+                  f"224^2 (CUDA events), {how}, K4 launches {n}", flush=True)
+        del rot
+    del d, small
+    dc = ta.cmunet_view_draws(gen, cm_batch, 256, 256, 224)
+    small = {k: v[:VIEW_CHECK].cpu() for k, v in dc.items()}
+    _check_bank_rows(dc, 256, 256, "cubic")
+    for impl in (None, "bank", "bank_fused"):
+        label = f"cmunet/{impl or 'chain'}"
+
+        def views():
+            return ta.cmunet_two_views_batch(imgs[:cm_batch], 224, 31, impl,
+                                             draws=dc)
+
+        pc.crop_resize_pallas.launches = 0
+        v1, v2 = views()
+        r1, r2 = ta.cmunet_two_views_batch(cpu_imgs, 224, 31, impl,
+                                           draws=small)
+        err = max(_check_view(label, v1[:VIEW_CHECK], r1, 1e-5),
+                  _check_view(label, v2[:VIEW_CHECK], r2, 1e-5))
+        if pc.crop_resize_pallas.launches:
+            fail(f"VIEWS {label} launched K4")
+        ms[label], lo, hi = _time_spread(views, iters)
+        print(f"VIEWS {label}: {ms[label]:.3f} ms (median of {VIEW_REPEATS}"
+              f", {lo:.3f}-{hi:.3f}) for the two views of {cm_batch} images "
+              f"(CUDA events), rel err against the CPU {err:.3e}", flush=True)
+    del imgs
+    torch.cuda.empty_cache()
+    print("VIEWS (ms): " + json.dumps({k: round(v, 4) for k, v in ms.items()}),
+          flush=True)
+    return {"ms": ms, "k4": k4}
+
+
+def cmb_phase(batch: int, steps: int = 2) -> dict:
+    """Phase CMB (see the module docstring). Returns its numbers."""
+    import torch
+
+    from cmx_torch.config.config import apply_overrides
+    from cmx_torch.train.schedules import scaled_base_lr, warmup_cosine
+
+    cfg = make_cm_cfg(batch)
+    apply_overrides(cfg, ["task.crop_impl=bank_fused"])
+    lr = warmup_cosine(scaled_base_lr(cfg.optim.lr, batch),
+                       cfg.train.epochs, cfg.optim.warmup_epochs)
+    state, step, imgs = make_step(cfg, lr=lr, seed=0)
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, imgs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"CMB step {i}: " + " ".join(f"{k}={v:.6g}"
+                                          for k, v in vals.items()),
+              flush=True)
+        if not (all(math.isfinite(vals[k]) for k in
+                    ("loss", "loss_ct", "loss_rc", "grad_norm"))
+                and vals["nonfinite"] == 0.0):
+            fail(f"CMB step {i} is not finite: {vals}")
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    if any(launches.values()):
+        fail(f"the CM-UNet bank_fused step launched kernels: {launches}")
+    print(f"CMB: CM-UNet task.crop_impl=bank_fused batch {batch}: {steps} "
+          f"steps ({', '.join(f'{t:.3f}' for t in times)} ms, the first "
+          f"with the bank's set-up), no kernel of the port launched",
+          flush=True)
+    del state, step, imgs
+    torch.cuda.empty_cache()
+    return {"step_ms": times}
+
+
+def mf_cli_phase(work: Path, data_dir: str) -> float:
+    """Phase MF-CLI (see the module docstring). Returns its seconds."""
+    return one_epoch_cli("MF-CLI", work, data_dir, "moco_fast", [], {}, {})[0]
+
+
+def _lib_ops(gen, batch: int, size: int) -> list:
+    """(name, fn(imgs, draws), draws, how it is held) for every op of
+    augment_extra and auto_augment, draws for `batch` images of size^2."""
+    import torch
+
+    from cmx_torch.ops import augment_extra as tx
+    from cmx_torch.ops import auto_augment as taa
+
+    n = batch
+    views = [tx.apply_draws(gen, n, 0.5) for _ in range(3)]
+    ops = [
+        ("color_jitter", tx.color_jitter,
+         tx.color_jitter_draws(gen, n, p=0.5), "rel"),
+        ("random_erasing", tx.random_erasing, tx.random_erasing_draws(gen, n),
+         "rel"),
+        ("solarize", lambda x, d: tx.solarize(x, d["apply"]),
+         tx.apply_draws(gen, n, 0.5), "rel"),
+        ("posterize", lambda x, d: tx.posterize(x, d["apply"]),
+         tx.apply_draws(gen, n, 0.5), "rel"),
+        ("invert", lambda x, d: tx.invert(x, d["apply"]),
+         tx.apply_draws(gen, n, 0.5), "rel"),
+        ("resize_edge", lambda x, d: tx.resize_edge(x, size // 2), {}, "rel"),
+        ("translate", tx.translate, tx.translate_draws(gen, n, size, size),
+         "rel"),
+        ("dual_resized_crop",
+         lambda x, d: torch.cat([v.flatten(1) for v in tx.dual_resized_crop(
+             x, 224, 112, d)], 1),
+         tx.dual_resized_crop_draws(gen, n, size, size), "rel"),
+        ("random_crop_padded",
+         lambda x, d: tx.random_crop_padded(x, 224, d, padding=4),
+         tx.random_crop_padded_draws(gen, n, size, size, 224, padding=4),
+         "rel"),
+        ("multi_view",
+         lambda x, d: torch.stack(tx.multi_view(x, [
+             lambda i, v: tx.invert(v, d[f"apply{i}"]),
+             lambda i, v: tx.solarize(v, d[f"apply{i}"])], [2, 1])),
+         {f"apply{i}": v["apply"] for i, v in enumerate(views)}, "rel"),
+    ]
+    geometric = ("shear_x", "shear_y", "translate_x", "translate_y", "rotate")
+    for name in geometric + (
+            "auto_contrast", "invert", "equalize", "solarize", "solarize_add",
+            "posterize", "contrast", "color", "brightness", "sharpness",
+            "cutout"):
+        ops.append((f"aa.{name}",
+                    functools.partial(lambda name, x, d: taa.apply_op(
+                        name, 7, x, d), name),
+                    taa.op_draws(gen, (n,), 0.5),
+                    "pixels" if name in geometric else "rel"))
+    ops += [("aa.auto_augment",
+             lambda x, d: taa.auto_augment(x, draws=d),
+             taa.auto_augment_draws(gen, n), "share"),
+            ("aa.rand_augment",
+             lambda x, d: taa.rand_augment(x, draws=d),
+             taa.rand_augment_draws(gen, n), "share")]
+    return ops
+
+
+def lib_phase(batch: int, iters: int) -> dict:
+    """Phase LIB (see the module docstring). Returns name -> ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from cmx_torch.ops import s2d as ts
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    size = 256
+    imgs = torch.rand((batch, size, size), generator=gen, device="cuda")
+    cpu_imgs = imgs[:LIB_CHECK].cpu()
+    ms = {}
+    for name, fn, d, how in _lib_ops(gen, batch, size):
+        out = fn(imgs, d)
+        ref = fn(cpu_imgs, {k: v[:LIB_CHECK].cpu() for k, v in d.items()})
+        got = out[:LIB_CHECK].cpu() if name != "multi_view" \
+            else out[:, :LIB_CHECK].cpu()
+        if how == "rel":
+            err = rel_err(got, ref)[1]
+            ok, shown = err <= 1e-5, f"rel err {err:.3e}"
+        else:  # a rounding that an ulp of cos / sin flips moves a pixel
+            diff = ((got != ref) if how == "pixels"
+                    else ((got - ref).abs() > 1e-5)).float().mean()
+            ok = float(diff) <= PIXEL_SHARE
+            shown = f"{float(diff):.3e} of the pixels differ"
+        if not (ok and bool(torch.isfinite(out).all())):
+            fail(f"LIB {name}: the card disagrees with the CPU ({shown})")
+        ms[name] = time_ms(lambda: fn(imgs, d), iters)
+        print(f"LIB {name}: {ms[name]:.3f} ms at batch {batch} of {size}^2 "
+              f"(CUDA events); {LIB_CHECK} images against the CPU: {shown}",
+              flush=True)
+    del imgs
+    torch.cuda.empty_cache()
+    b, cin, cout, side = S2D_SHAPE
+    x = torch.randn((b, cin, side, side), generator=gen, device="cuda")
+    w = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((cout,), generator=gen, device="cuda")
+    x5 = ts.s2d5(x)
+    got = ts.phase_conv5(x5, w, bias, torch.float32)
+    ref = ts.s2d5(F.conv2d(x, w, bias, padding=1))
+    err = rel_err(got, ref)[1]
+    if not err <= S2D_TOL:
+        fail(f"LIB s2d: phase_conv5 disagrees with F.conv2d (rel {err:.3e})")
+    del got, ref
+    ms["s2d.phase_conv5"] = time_ms(
+        lambda: ts.phase_conv5(x5, w, bias, torch.float32), iters)
+    ms["s2d.F.conv2d"] = time_ms(lambda: F.conv2d(x, w, bias, padding=1),
+                                 iters)
+    print(f"LIB s2d ({b}, {cin}->{cout}, {side}^2, fp32, TF32 off): "
+          f"phase_conv5 {ms['s2d.phase_conv5']:.3f} ms, F.conv2d "
+          f"{ms['s2d.F.conv2d']:.3f} ms (phase_conv5/F.conv2d "
+          f"{ms['s2d.phase_conv5'] / ms['s2d.F.conv2d']:.3f}); rel err "
+          f"{err:.3e} (tolerance {S2D_TOL:g})", flush=True)
+    del x, x5
+    torch.cuda.empty_cache()
+    print("LIB (ms): " + json.dumps({k: round(v, 4) for k, v in ms.items()}),
+          flush=True)
+    return ms
+
+
+def views_phases(work: Path, data_dir, k4_ms) -> dict:
+    """MF, VIEWS, CMB, MF-CLI and LIB in turn (`--views`: all but LIB).
+    `data_dir` is the CLI phase's corpus, or None for a new one in `work`;
+    `k4_ms` phase 5's K4 step time, or None. Returns their numbers."""
+    t0 = time.perf_counter()
+    out = {"mf": mf_phase(MOCO_BATCH, MOCO_STEPS, k4_ms, work),
+           "views": views_phase(MOCO_BATCH, CM_BATCH, ITERS),
+           "cmb": cmb_phase(CM_BATCH),
+           "mf_cli_s": mf_cli_phase(work, data_dir or str(work / "data"))}
+    print(f"MF/VIEWS/CMB/MF-CLI phases took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 DP_TIMEOUT = 600  # seconds a spawned rank or launcher run may take
 
 
@@ -2631,6 +3101,9 @@ def main(argv=None) -> int:
     p.add_argument("--dp", action="store_true",
                    help="build the kernels, then run phases DP1, DP2 and "
                         "DP-CLI alone")
+    p.add_argument("--views", action="store_true",
+                   help="build the kernels, then run phases MF, VIEWS, CMB "
+                        "and MF-CLI alone")
     p.add_argument("--dp-rank", type=int, default=None,
                    help="(spawned by DP2) run as this rank of the gloo group "
                         "its environment describes")
@@ -2676,11 +3149,14 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    if args.dp:
+    if args.dp or args.views:
         scratch = repo / "_scratch"
         scratch.mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=scratch) as work:
-            dp_phases(Path(work), None, None, None, smi)
+            if args.dp:
+                dp_phases(Path(work), None, None, None, smi)
+            else:
+                views_phases(Path(work), None, None)
         print(smi, flush=True)
         return 0
     for name in sorted(_build.build_all()):
@@ -2750,7 +3226,8 @@ def main(argv=None) -> int:
     print(f"NHWC phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    moco_kern, moco_launches = moco_phase(MOCO_BATCH, MOCO_STEPS, ITERS)
+    moco_kern, moco_launches, moco_ms = moco_phase(MOCO_BATCH, MOCO_STEPS,
+                                                   ITERS)
     kern.update(moco_kern)
     print(f"MoCo phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2758,6 +3235,8 @@ def main(argv=None) -> int:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as work:
         _, encoder, data_dir = cli_phase(Path(work), per_step)
+        vp = views_phases(Path(work), data_dir, moco_ms)
+        lib_phase(MOCO_BATCH, ITERS)
         t0 = time.perf_counter()
         ft_per_step, ft_ms, ft_plain_ms, ft_kern = finetune_phase(
             BATCH, SPARK_STEPS, ITERS)
@@ -2870,7 +3349,9 @@ def main(argv=None) -> int:
                    + g_launches.get(n, 0) + dv_launches.get(n, 0)
                    + rm_launches.get(n, 0) + dp_launches.get(n, 0)
                    for n in SPARK_KERNELS},
-                **{n: moco_launches[n] for n in MOCO_KERNELS},
+                # K4: phase 5's steps and VIEWS' checked pallas views
+                **{n: moco_launches[n] + vp["views"]["k4"]
+                   for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
     rows = []
@@ -2934,8 +3415,11 @@ def main(argv=None) -> int:
           f"launches: {SPARK_STEPS} SparK steps of each impl, K1-K3 also "
           f"MAE1's, G1's, DV's, RM's and DP1's {SPARK_STEPS} steps each and "
           f"DP2's {DP2_STEPS} on each of its two ranks / "
-          f"{MOCO_STEPS} MoCo steps / the K5 phase); SparK step_ms flat="
-          f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; EV {ev['secs']:.1f} s; DP1 "
+          f"{MOCO_STEPS} MoCo steps and VIEWS' {vp['views']['k4']} checked "
+          f"pallas views / the K5 phase); SparK step_ms flat="
+          f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; MF moco_fast step_ms="
+          f"{vp['mf']['step_ms']:.3f} (K4 {vp['mf']['k4_ms']:.3f}); MF-CLI "
+          f"{vp['mf_cli_s']:.1f} s; EV {ev['secs']:.1f} s; DP1 "
           f"(NCCL, world 1) step_ms={dp['dp1']['step_ms']:.3f}, DP2 (gloo, 2 "
           f"ranks on one card) step_ms per rank "
           f"{', '.join(f'{t:.3f}' for t in dp['dp2']['step_ms'])}",

@@ -39,7 +39,10 @@ Differences from cmx's CLI, each for a reason:
     the same config, a run cut after a checkpoint and started again ends
     where an uninterrupted one does, bit for bit on the CPU.
   * `train.profile_dir` traces one epoch with torch.profiler (a Chrome
-    trace) in place of jax.profiler.
+    trace, cmx_torch.utils.profiling.trace) in place of jax.profiler.
+  * cmx's persistent compilation cache (cmx/utils/compile_cache.py) has no
+    counterpart: nothing here is compiled ahead (the CUDA kernels build
+    once into cmx_torch/_build/).
   * `main` returns a summary of the run (the state, the loader used,
     whether the device feed ran, the steps and validation batches an epoch,
     the exported paths) besides printing it.
@@ -48,7 +51,6 @@ Differences from cmx's CLI, each for a reason:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -65,6 +67,8 @@ from cmx_torch.parallel.dist import (InfiniteBatchSampler,
                                      local_rank, on_main, process_info,
                                      shutdown)
 from cmx_torch.train.trainer import Task, extra_buffers
+from cmx_torch.utils.profiling import trace
+
 
 def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                ) -> Tuple[Task, torch.nn.Module]:
@@ -207,13 +211,6 @@ def _to_host(metrics: list, names) -> list:
                         for m in metrics]).cpu().tolist()
 
 
-def _profiler(dev: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
-
-
 def _corpus_stamp_info(cfg: Config):
     """(corpus dir, its meta.json or None) for the stamp; never raises."""
     corpus_meta = None
@@ -234,10 +231,11 @@ def _corpus_stamp_info(cfg: Config):
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--task", default=None,
-                   help="genesis|genesis_tuned|mae|mae_tuned|moco|spark|"
-                        "cmunet (the *_tuned names require --preset: each "
-                        "is a preset key that resolves task.name back to "
-                        "genesis or mae)")
+                   help="genesis|genesis_tuned|mae|mae_tuned|moco|"
+                        "moco_fast|spark|cmunet (genesis_tuned, mae_tuned "
+                        "and moco_fast require --preset: each is a preset "
+                        "key that resolves task.name back to genesis, mae "
+                        "or moco)")
     p.add_argument("--preset", action="store_true",
                    help="start from the reference recipe for --task "
                         "(cmx_torch.config.presets) before applying overrides")
@@ -419,8 +417,8 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
     for ep in range(start_ep, cfg.train.epochs):
         profile_this = bool(cfg.train.profile_dir) and ep == start_ep + 1
         t0 = time.time()
-        with _profiler(dev) if profile_this else contextlib.nullcontext() \
-                as prof:
+        with trace(cfg.train.profile_dir if profile_this else None,
+                   f"trace_ep{ep}.json", dev) as trace_path:
             step_metrics = []
             # per-iteration progress for long epochs; metric VALUES still
             # reach the host once per epoch below.
@@ -449,11 +447,8 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
         for row in vals:
             logger.update(**dict(zip(names, row)))
         dt = time.time() - t0
-        if prof is not None:
-            os.makedirs(cfg.train.profile_dir, exist_ok=True)
-            trace = os.path.join(cfg.train.profile_dir, f"trace_ep{ep}.json")
-            prof.export_chrome_trace(trace)
-            print(f"profile of epoch {ep} written to {trace}")
+        if trace_path is not None:
+            print(f"profile of epoch {ep} written to {trace_path}")
         epoch_metrics = {k: m.avg for k, m in logger.meters.items()}
         print(f"epoch {ep}: {logger}  ({dt:.1f}s, "
               f"{steps_per_epoch * cfg.train.batch_size / dt:.1f} img/s)")

@@ -119,28 +119,27 @@ class TaskConfig:
     ema_momentum: float = 0.996
     num_negatives: int = 65536
     view_size: int = 224
-    # MoCo rotation formulation: "nearest" (reference-faithful pointwise
-    # gather, torchvision RandomRotation NEAREST) or "shear3" (rot90 +
-    # three-shear, gather-free — see cmx/ops/augment.py and the round-5
-    # MoCo profile in RESULTS.md). Same angle distribution either way.
+    # MoCo rotation (cmx_torch.ops.augment.rotate_batch): "nearest" is
+    # torchvision RandomRotation's NEAREST as one flat gather over the batch;
+    # "shear3" is rot90 plus three integer row shears (a gather each; square
+    # images; other per-pixel rounding, same angle distribution);
+    # "bilinear" four corner gathers; any other value the nearest gather,
+    # as in cmx.
     rotation_method: str = "nearest"
     # MoCo crop resample: "linear" = torchvision RandomResizedCrop's default
     # BILINEAR (the reference passes no interpolation,
     # moco_data_module.py:123); "cubic" = the pre-2026-08-18 cmx behavior
     # (see cmx/ops/augment.py CROP_METHOD note and RESULTS.md).
     crop_method: str = "linear"
-    # MoCo crop execution: "scale_translate" = jax.image.scale_and_translate;
-    # "einsum" = the same separable weight matrices as two explicit batched
-    # dots (identical linear map, fp round-off only); "einsum_bf16" = bf16
-    # dots with fp32 accumulation (documented numeric deviation); "pallas" =
-    # fused VMEM kernel (exact, opt-in); "bank" = integer crop windows
-    # (torchvision's own get_params quantization) with weights fetched from
-    # a precomputed per-extent bank by one-hot matmuls — removes the
-    # per-sample weight-construction floor (RESULTS crop2/round 3);
-    # "bank_fused" = bank crop + blur + flips composed into two batched
-    # matmuls per axis (exact linear map of the per-stage chain up to fp32
-    # round-off; the bank's window quantization is the only deviation).
-    # See cmx/ops/augment.py CROP_IMPL.
+    # MoCo crop execution in the port: "scale_translate" and "einsum" = the
+    # separable weight-matrix map as two fp32 batched matmuls; "einsum_bf16"
+    # = the same map on bf16 operands, the intermediate rounded to bf16;
+    # "pallas" = K4, the crop-resize CUDA kernel (csrc/crop_resize.cu);
+    # "bank" = integer crop windows (torchvision's get_params quantization)
+    # with weights fetched by index from a bank built once on the host;
+    # "bank_fused" = the bank crop, blur and flips composed into two
+    # matrices per image, two fp32 batched matmuls. chip_smoke.py's VIEWS
+    # phase times each on the card (PERF.md section 5).
     crop_impl: str = "scale_translate"
     full_unet: bool = True
     augment: bool = True

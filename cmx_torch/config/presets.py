@@ -101,21 +101,19 @@ def moco_preset(cfg: Config | None = None) -> Config:
 
 
 def moco_fast_preset(cfg: Config | None = None) -> Config:
-    """MoCo v2, TPU-fast view pipeline — a deliberate perf deviation set,
-    each member transfer-equivalence-tested on the 79/1-analog:
+    """MoCo v2 with cmx's fast view options, a deliberate deviation set
+    that cmx tested for transfer equivalence:
 
-    * rotation_method="shear3": rot90 + three statically-unrolled integer
-      shears instead of the exact nearest gather (per-pixel index-rounding
-      deviation only; equivalence run artifacts/r2/moco_shear3 — Dice
-      0.5113 vs the same-protocol exact-rotation comparator 0.4875,
-      inside the split's seed-noise band).
+    * rotation_method="shear3": rot90 and three integer row shears in place
+      of the nearest gather (per-pixel rounding deviation only); in the
+      port each shear is one gather.
     * crop_impl="bank_fused": integer crop windows (torchvision's own
-      get_params quantization) with weights from per-extent banks, and
-      crop+blur+flips composed into two batched matmuls per axis
-      (equivalence run artifacts/r3/moco_bank).
+      get_params quantization) with weights fetched by index from a bank,
+      and crop + blur + flips composed into two fp32 batched matmuls.
 
-    The plain `moco` preset stays reference-faithful; this one is the
-    production serving/pretraining recommendation on TPU."""
+    The plain `moco` preset stays reference-faithful. chip_smoke.py's MF
+    phase runs this preset's step beside `moco`'s with K4 on the card, and
+    its VIEWS phase times each view option (PERF.md section 5)."""
     cfg = moco_preset(cfg)
     cfg.task.rotation_method = "shear3"
     cfg.task.crop_impl = "bank_fused"

@@ -440,14 +440,15 @@ def test_cli_device_defaults_to_cuda(tmp_path):
 
 def test_cli_refuses_tensorboard_and_unported_tasks(tmp_path, small_widths,
                                                    monkeypatch):
-    """The options still to port raise, naming their ROADMAP item: MoCo's
-    bank crop. (Runs of more than one process are ported: the 2-rank CLI
-    run is in test_torch_port_dp.py; here a WORLD_SIZE without the
-    launcher's other variables raises before anything is written.)"""
-    with pytest.raises(NotImplementedError, match="MoCo view-pipeline"):
-        _run(tmp_path, "bank", "moco", [
-            "task.crop_impl=bank", "data.synthetic_n=8",
-            "task.num_negatives=16", "task.view_size=24", "train.epochs=1"])
+    """No option is refused any more: MoCo's bank crop, the last option
+    that raised, now trains and returns a state. (Runs of more than one
+    process are ported: the 2-rank CLI run is in test_torch_port_dp.py;
+    here a WORLD_SIZE without the launcher's other variables raises before
+    anything is written.)"""
+    out = _run(tmp_path, "bank", "moco", [
+        "task.crop_impl=bank", "data.synthetic_n=8",
+        "task.num_negatives=16", "task.view_size=24", "train.epochs=1"])
+    assert out["state"].step == 2 and os.path.isfile(out["encoder"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)

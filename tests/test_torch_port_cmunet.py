@@ -134,6 +134,8 @@ def cmx_cmunet_draws(key, shape, out_size, shift=31):
 
         noise = jax.vmap(jax.random.split)(ks[:, 4])
         return {
+            "box": jax.vmap(lambda k: jnp.stack(ca._crop_window_box(
+                k, h, w, (0.2, 1.0), (3 / 4, 4 / 3))))(ks[:, 0]),
             "crop": jax.vmap(lambda k: jnp.stack(ca._crop_window_params(
                 k, h, w, 256, (0.2, 1.0), (3 / 4, 4 / 3))))(ks[:, 0]),
             "flip": uni(ks[:, 1]) < 0.5,
@@ -151,8 +153,9 @@ def test_cmunet_two_views_batch_matches_cmx():
     where 16 + dy > 224): both views within 1e-5 relative of cmx's; the key
     covers both flips, both noise branches and a clipped offset. Every
     crop_impl of cmx's chain gives the same views; "bank" and "bank_fused"
-    raise, naming their ROADMAP item. cmunet_two_views on one image with
-    that image's draws gives the batch's views of it."""
+    (the bank crop of the draw "box") match cmx's bank views within 1e-5.
+    cmunet_two_views on one image with that image's draws gives the batch's
+    views of it."""
     from cmx.ops.augment import cmunet_two_views_batch as jviews
     from cmx_torch.ops.augment import cmunet_two_views, cmunet_two_views_batch
 
@@ -174,9 +177,9 @@ def test_cmunet_two_views_batch_matches_cmx():
         w1, w2 = cmunet_two_views_batch(t, VIEW, 31, impl, draws=d)
         assert torch.equal(w1, v1) and torch.equal(w2, v2), impl
     for impl in ("bank", "bank_fused"):
-        with pytest.raises(NotImplementedError,
-                           match="MoCo view-pipeline options"):
-            cmunet_two_views_batch(t, VIEW, 31, impl, draws=d)
+        b1, b2 = jviews(key, jnp.asarray(imgs), VIEW, 31, impl)
+        w1, w2 = cmunet_two_views_batch(t, VIEW, 31, impl, draws=d)
+        assert _rel(w1.numpy(), b1) <= 1e-5 and _rel(w2.numpy(), b2) <= 1e-5
 
 
 def test_shift_pixel_crop_matches_cmx():

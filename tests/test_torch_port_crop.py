@@ -57,7 +57,9 @@ def _stage_keys(key, batch):
 def cmx_view_draws(key, shape, out_size):
     """The draws cmx's moco_view_aug_batch makes from `key` for a (B,H,W)
     batch: split(key, B), then split(k_i, 6) per image; stage s draws from
-    ks[:, s] exactly as cmx's stage does (augment.py:686-799, 1013-1052)."""
+    ks[:, s] exactly as cmx's stage does (augment.py:686-799, 1013-1052).
+    "box" is the window every crop impl derives from (_crop_window_box),
+    "crop" its scale_and_translate arguments (_crop_window_params)."""
     b, h, w = shape
 
     @jax.jit
@@ -73,6 +75,8 @@ def cmx_view_draws(key, shape, out_size):
             "angle": jnp.deg2rad(jax.vmap(lambda k: jax.random.uniform(
                 k, minval=-180.0, maxval=180.0))(rot[:, 1])),
             "rot_apply": uni(rot[:, 0]) < 0.5,
+            "box": jax.vmap(lambda k: jnp.stack(ca._crop_window_box(
+                k, h, w, (0.2, 1.0), (3 / 4, 4 / 3))))(ks[:, 1]),
             "crop": jax.vmap(lambda k: jnp.stack(ca._crop_window_params(
                 k, h, w, out_size, (0.2, 1.0), (3 / 4, 4 / 3))))(ks[:, 1]),
             "blur_apply": uni(blur[:, 0]) < 0.5,
@@ -280,6 +284,20 @@ def test_moco_view_aug_batch_matches_cmx(crop_impl):
                                     dict(crop_impl="bank"),
                                     dict(crop_impl="bank_fused")])
 def test_moco_view_options_not_ported_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.moco_view_aug_batch(torch.zeros((2, 32, 32)), 16,
-                               gen=torch.Generator(), **kwargs)
+    """The options this test once found refused (each raised, naming its
+    ROADMAP item) are ported: each view against cmx's with cmx's draws, rel
+    <= 1e-5 (tests/test_torch_port_views.py holds every pair)."""
+    rng = np.random.default_rng(8)
+    imgs = rng.normal(size=(6, 48, 48)).astype(np.float32) + 1.0
+    key = jax.random.key(9)
+    opts = {"rotation_method": "nearest", "crop_impl": "scale_translate",
+            **kwargs}
+    ref = np.asarray(jax.jit(lambda k, x: ca.moco_view_aug_batch(
+        k, x, 32, opts["rotation_method"], "linear", opts["crop_impl"]))(
+            key, imgs))
+    got = ta.moco_view_aug_batch(torch.from_numpy(imgs), 32,
+                                 crop_method="linear",
+                                 draws=cmx_view_draws(key, imgs.shape, 32),
+                                 **opts)
+    assert tuple(got.shape) == ref.shape == (6, 32, 32)
+    assert _rel(got.numpy(), ref) <= TOL

@@ -129,7 +129,7 @@ def test_sgd_matches_optax():
     assert int(ttx.count) == 3
 
 
-def _setup(dtype, crop_impl):
+def _setup(dtype, crop_impl, rotation_method=None):
     """cmx's step and the port's from the same weights and task state."""
     from cmx.ssl.moco import make_moco_task as jtask
     from cmx.train.optim import make_optimizer as jopt
@@ -145,7 +145,8 @@ def _setup(dtype, crop_impl):
     imgs = (rng.normal(size=(B, SIZE, SIZE)) + 1.0).astype(np.float32)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     jm = GapEncoder(dtype=jdt)
-    jt, _ = jtask(jm, num_negatives=K, view_size=VIEW, crop_impl=crop_impl)
+    jt, _ = jtask(jm, num_negatives=K, view_size=VIEW, crop_impl=crop_impl,
+                  rotation_method=rotation_method)
     init = jax.jit(jm.init)
     v = _np_tree(init(jax.random.key(0), imgs[:1, :VIEW, :VIEW]))
     vk = _np_tree(init(jax.random.key(1), imgs[:1, :VIEW, :VIEW]))
@@ -169,7 +170,8 @@ def _setup(dtype, crop_impl):
 
     tm = from_flax(port_model(), v)
     tt, _ = make_moco_task(tm, num_negatives=K, view_size=VIEW,
-                           crop_impl=crop_impl)
+                           crop_impl=crop_impl,
+                           rotation_method=rotation_method)
     ttx = make_optimizer("sgd", LR, WD, momentum=0.9,
                          named_params=tm.named_parameters())
     textra = moco_extra_from_flax(port_model(), jextra)
