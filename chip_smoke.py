@@ -249,6 +249,36 @@ nothing past world size 1 on NCCL is claimed):
      cuDNN's deterministic algorithms: encoder.npz bit for bit, the same
      losses. `python3 chip_smoke.py --dp` builds the kernels and runs the
      DP phases alone.
+The train step captured once as a CUDA graph (cmx_torch.train.graph, the
+counterpart of cmx's train.scan), with cuDNN's deterministic algorithms:
+  GRAPH. for SparK at BATCH (flat fused, K3), FT1 at BATCH, MAE1 at
+     MAE_BATCH, G1 at GENESIS_BATCH, MoCo at MOCO_BATCH (crop_impl pallas,
+     and PRESETS["moco_fast"]), CM1 at CM_BATCH and at 2 x CM_BATCH (the
+     tightest fit on one card) and RM's SparK at RM_BATCH without remat,
+     each from two states made from the same seeds
+     (`graph_case`): GRAPH_STEPS eager steps on the first (its tensors
+     kept, then two profiled steps; the state freed), then the same steps
+     through a StepGraph on the second (a warm-up step, the capture, and
+     GRAPH_STEPS - 1 replays), each step's rows gathered from one corpus by
+     one permutation: every parameter, BN buffer, optimizer state, `extra`
+     tensor and metric bit for bit; two profiled replays: the port's
+     kernels by name (the profiler) equal to an eager step's, and the
+     wrapper calls seen at the capture equal to an eager step's (a replay
+     calls no wrapper); step time eager and with the graph (the last
+     GRAPH_STEPS - 2 steps of each, back to back), busy shares, capture
+     seconds, the pool and the peak memory. `python3 chip_smoke.py
+     --graph` builds the kernels and runs GRAPH alone.
+  The CLI phases (CLI, FT-CLI, CM-CLI, G-CLI, RM-CLI, MF-CLI, DP-CLI) run
+     the CLIs as a user does, so their steps replay a graph (the first
+     step of each run eager, the second captured; each fine-tune fit has
+     its own graph): their launch checks count each kernel as its
+     wrapper's calls less each graph's capture calls plus those calls
+     times the graph's replays (`graph_launches`, from the graphs'
+     reports), and fail unless every graph captured exactly one step's
+     calls and each run replayed all its steps but the first. The CLI
+     phase runs with cuDNN's deterministic algorithms and adds the same
+     2-epoch run with train.scan=False (every step eager): encoder.npz
+     bit for bit and log.jsonl equal, both runs' epoch img/s.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON (the SparK/MoCo paths' rows, as before, K4's launches counting
 VIEWS' pallas views too, K1's and K2's launches
@@ -256,7 +286,9 @@ counting MAE1's, G1's, DV's and RM's 8-step runs too, K3's DV's and RM's;
 K3's row sums its forward and backward, which it also lists under "parts"),
 the card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}} last. K1-K3's launches there count DP1's 8 steps and DP2's 4 on
-each rank too.
+each rank too; each row's "launches_in_replays" counts its kernel's
+launches inside graph replays (GRAPH, the CLI phases and FT-CLI's fits:
+each graph's capture calls times its replays).
 """
 
 from __future__ import annotations
@@ -1242,6 +1274,36 @@ class _Tee:
         self.stream.flush()
 
 
+def graph_launches(wrappers: dict, since: int, per_step: dict,
+                   label: str) -> dict:
+    """Each kernel's launches in the runs since cmx_torch.train.graph's
+    REPORTS held `since` reports: the wrappers' counts (eager steps,
+    validation forwards, and each capture once) less each graph's capture
+    calls, plus those calls times the graph's replays. Fails unless every
+    graph captured exactly one step's calls (`per_step`)."""
+    from cmx_torch.train.graph import REPORTS
+
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    want = {n: c for n, c in per_step.items() if c}
+    for rep in REPORTS[since:]:
+        if rep["capture_calls"] != want:
+            fail(f"{label}: a graph captured the calls "
+                 f"{rep['capture_calls']}, not one step's {want}")
+        for n, c in rep["capture_calls"].items():
+            counts[n] += c * (rep["replays"] - 1)
+    return counts
+
+
+def graphs_since(since: int) -> str:
+    """The graphs captured since REPORTS held `since` reports, in words."""
+    from cmx_torch.train.graph import REPORTS
+
+    return "; ".join(
+        f"{r['label']}: {r['eager_steps']} eager step(s), {r['replays']} "
+        f"replays, captured in {r['capture_s']:.3f} s"
+        for r in REPORTS[since:]) or "no graph"
+
+
 def cli_phase(work: Path, per_step: dict):
     """Phase CLI: `cmx_torch.cli.pretrain.main` in this process, as a user
     runs it, in the directory `work`: SparK with
@@ -1249,24 +1311,30 @@ def cli_phase(work: Path, per_step: dict):
     bf16, batch BATCH, LAMB as phase 2's step, a synthetic corpus of
     CLI_IMAGES images (at batch 32: 32 of its pretrain split of 66 for
     validation with patience 5, 34 for training, 2 steps an epoch),
-    train.save_every_epoch=True; CLI_EPOCHS[0]
-    epochs, then a second call to CLI_EPOCHS[1] epochs that resumes. Fails
-    unless the native loader read the corpus and the device feed ran in
-    both calls, log.jsonl holds epochs 0..CLI_EPOCHS[1]-1 with finite losses
-    and validation losses, each kernel's launches equal phase 2's per-step
-    calls times the training steps (plus, for the forward kernels K1 and K3,
-    the validation forwards), encoder.npz reloads through load_encoder into
+    train.save_every_epoch=True, cuDNN's deterministic algorithms;
+    CLI_EPOCHS[0] epochs, the same run with train.scan=False (eager steps)
+    in another directory, then a call to CLI_EPOCHS[1] epochs that resumes
+    the first. Fails unless the native loader read the corpus and the
+    device feed ran in both calls, every step but a call's first was
+    replayed from its graph, the train.scan=False run wrote the same
+    encoder.npz and log.jsonl, log.jsonl holds epochs 0..CLI_EPOCHS[1]-1
+    with finite losses and validation losses, each kernel's launches
+    (`graph_launches`) equal phase 2's per-step calls times the training
+    steps (plus, for the forward kernels K1 and K3, the validation
+    forwards), encoder.npz reloads through load_encoder into
     a fresh SparKModel whose encoder equals the run's final one bit for bit,
     and the stamp's sha256 is the file's. Returns (the phase's seconds, the
     exported encoder.npz, the corpus directory); both stay in `work`."""
     import contextlib
     import hashlib
 
+    import numpy as np
     import torch
 
     from cmx_torch.ckpt.checkpoint import load_encoder
     from cmx_torch.cli.pretrain import main as pretrain_main
     from cmx_torch.ssl.spark import SparKModel
+    from cmx_torch.train.graph import REPORTS
 
     t0 = time.perf_counter()
     wrappers = {name: k[0] for name, k in kernels().items()}
@@ -1274,45 +1342,96 @@ def cli_phase(work: Path, per_step: dict):
     tmp = str(work)
     base = ["--task", "spark", "data.synthetic=True",
             f"data.synthetic_n={CLI_IMAGES}", f"data.data_dir={tmp}/data",
-            f"train.ckpt_dir={tmp}/ckpt", "model.fused_conv=True",
+            "model.fused_conv=True",
             "task.pallas_loss=True", f"data.image_size={CLI_SIZE}",
             f"train.batch_size={BATCH}", "optim.name=lamb",
             "optim.lr=2e-4", "optim.weight_decay=0.04",
             "optim.clip_norm=5.0", "train.patience=5",
             "train.save_every_epoch=True"]
-    done, prev_step, results = 0, 0, []
-    for epochs in CLI_EPOCHS:
+
+    def call(args, label):
+        """One CLI call: (its summary, its stdout, each kernel's launches,
+        its epochs' img/s)."""
         for fn in wrappers.values():
             fn.launches = 0
+        since = len(REPORTS)
         tee = _Tee(sys.stdout)
         with contextlib.redirect_stdout(tee):
-            out = pretrain_main(base + [f"train.epochs={epochs}"])
+            out = pretrain_main(base + args)
         torch.cuda.synchronize()
-        ran = epochs - done
-        steps = out["state"].step - prev_step
-        val = out["val_batches"] * ran
-        launches = {n: fn.launches for n, fn in wrappers.items()}
-        expect = {n: per_step.get(n, 0) * (
-            steps + (val if n in fwd_only else 0)) for n in wrappers}
         rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
                            "".join(tee.lines))
-        print(f"CLI call to {epochs} epochs: loader {out['loader']}, "
-              f"device feed {out['device_feed']}, {steps} training steps "
-              f"and {val} validation batches; epoch "
-              f"img/s (the CLI's own lines, host clock, the epoch's steps "
-              f"and its one metrics transfer): "
-              + ", ".join(f"epoch {e}: {r} img/s in {t} s"
-                          for e, t, r in rates)
-              + f"; launches {launches} (expected {expect})", flush=True)
-        if out["loader"] != "native" or not out["device_feed"]:
-            fail("the CLI did not load the corpus natively into the "
-                 "device feed")
-        if (launches != expect or not val
-                or steps != out["steps_per_epoch"] * ran):
-            fail("the CLI's steps did not run each kernel the expected "
-                 "number of times")
-        results.append(out)
-        done, prev_step = epochs, out["state"].step
+        print(f"CLI {label}: graphs {graphs_since(since)}", flush=True)
+        return (out, "".join(tee.lines),
+                graph_launches(wrappers, since, per_step, "CLI"), rates)
+
+    # cuDNN's deterministic algorithms: the run through the graph and the
+    # eager one (train.scan=False) must write the same encoder.npz
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        done, prev_step, results, noscan = 0, 0, [], None
+        for epochs in CLI_EPOCHS:
+            out, _, launches, rates = call(
+                [f"train.epochs={epochs}", f"train.ckpt_dir={tmp}/ckpt"],
+                f"to {epochs} epochs")
+            ran = epochs - done
+            steps = out["state"].step - prev_step
+            val = out["val_batches"] * ran
+            expect = {n: per_step.get(n, 0) * (
+                steps + (val if n in fwd_only else 0)) for n in wrappers}
+            g = out["graph"]
+            print(f"CLI call to {epochs} epochs: loader {out['loader']}, "
+                  f"device feed {out['device_feed']}, {steps} training steps "
+                  f"({g['eager_steps']} eager, {g['replays']} replayed from "
+                  f"the graph) and {val} validation batches; epoch "
+                  f"img/s (the CLI's own lines, host clock, the epoch's steps "
+                  f"and its one metrics transfer): "
+                  + ", ".join(f"epoch {e}: {r} img/s in {t} s"
+                              for e, t, r in rates)
+                  + f"; launches (eager calls + capture calls x replays) "
+                  f"{launches} (expected {expect})", flush=True)
+            if out["loader"] != "native" or not out["device_feed"]:
+                fail("the CLI did not load the corpus natively into the "
+                     "device feed")
+            if (launches != expect or not val
+                    or steps != out["steps_per_epoch"] * ran):
+                fail("the CLI's steps did not run each kernel the expected "
+                     "number of times")
+            if (g["eager_steps"], g["replays"]) != (1, steps - 1):
+                fail(f"the CLI's steps were not replayed from its graph: {g}")
+            results.append(out)
+            done, prev_step = epochs, out["state"].step
+            if noscan is None:  # the same run with train.scan=False
+                with np.load(out["encoder"]) as z:
+                    enc = {k: z[k] for k in z.files}
+                out2, _, launches2, rates2 = call(
+                    [f"train.epochs={epochs}", "train.scan=False",
+                     f"train.ckpt_dir={tmp}/ckpt_noscan"], "train.scan=False")
+                with np.load(out2["encoder"]) as z:
+                    same = sorted(z.files) == sorted(enc) and all(
+                        np.array_equal(z[k], v) for k, v in enc.items())
+                logs = [[{k: v for k, v in json.loads(line).items()
+                          if k != "time"} for line in Path(
+                              o["ckpt_dir"], "log.jsonl").read_text(
+                              ).splitlines()] for o in (out, out2)]
+                print(f"CLI train.scan=False to {epochs} epochs: "
+                      f"{out2['state'].step} eager steps, graph "
+                      f"{out2['graph']}; encoder.npz bit for bit the graph "
+                      f"run's {same}, log.jsonl equal {logs[0] == logs[1]}; "
+                      f"epoch img/s eager " + ", ".join(
+                          f"epoch {e}: {r}" for e, _, r in rates2)
+                      + " / graph " + ", ".join(f"epoch {e}: {r}"
+                                                for e, _, r in rates)
+                      + f"; launches {launches2}", flush=True)
+                if (not same or logs[0] != logs[1] or out2["graph"]
+                        is not None or launches2 != expect):
+                    fail("the CLI with train.scan=False is not the run "
+                         "through the graph")
+                noscan = out2
+                del out2
+    finally:
+        torch.backends.cudnn.deterministic = saved
     ckpt = results[-1]["ckpt_dir"]
     with open(Path(ckpt) / "log.jsonl") as f:
         log = [json.loads(line) for line in f]
@@ -1496,10 +1615,13 @@ def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
     from cmx_torch.cli.finetune import main as finetune_main
     from cmx_torch.data.splits import KFold
 
+    from cmx_torch.train.graph import REPORTS
+
     t0 = time.perf_counter()
     wrappers = {name: k[0] for name, k in kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
+    since = len(REPORTS)
     out = finetune_main([
         "--device", "cuda", "--pretrained", encoder, "--lrs", str(FT_LR),
         "--epochs", str(FT_CLI_EPOCHS), "--batches", str(FT_CLI_BATCH),
@@ -1508,7 +1630,8 @@ def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
         f"data.image_size={CLI_SIZE}", f"data.ratio={FT_CLI_RATIO}",
         "model.fused_conv=True"])
     torch.cuda.synchronize()
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = graph_launches(wrappers, since, per_step, "FT-CLI")
+    fits = REPORTS[since:]
     n_ft = out["n_finetune"]
     folds = [len(tr) for tr, _ in KFold(3, random_state=42).split(range(n_ft))]
     steps = FT_CLI_EPOCHS * sum(-(-n // FT_CLI_BATCH) for n in folds + [n_ft])
@@ -1529,17 +1652,20 @@ def finetune_cli_phase(work: Path, encoder: str, data_dir: str,
     print(f"FT-CLI: {n_ft} fine-tune images (folds train {folds}), "
           f"{out['n_test']} test images; encoder loaded bit for bit {same}; "
           f"every fold's and the final fit's logs finite {finite}; "
-          f"{steps} training steps, launches {launches} (expected {expect}, "
-          f"the frozen-BN evaluations add none); tag {out['tag']!r} "
+          f"{steps} training steps ({len(fits)} fits replayed from their "
+          f"graphs, {sum(r['replays'] for r in fits)} replays, capture "
+          f"seconds {[round(r['capture_s'], 3) for r in fits]}), launches "
+          f"(eager calls + capture calls x replays) {launches} (expected "
+          f"{expect}, the frozen-BN evaluations add none); tag {out['tag']!r} "
           f"(expected {tag!r}); test metrics {saved['test_metrics']}",
           flush=True)
     if not same:
         fail("the fine-tune CLI's UNet encoder does not equal encoder.npz")
     if not finite:
         fail("the fine-tune CLI logged a non-finite metric")
-    if launches != expect:
+    if launches != expect or len(fits) != len(folds) + 1:
         fail("the fine-tune CLI did not run K1/K2 the expected number of "
-             "times")
+             "times, or a fit ran no graph")
     if (out["tag"] != tag or Path(out["test_path"]).name != f"test_{tag}.json"
             or not math.isfinite(saved["dice"])):
         fail("the fine-tune CLI's test json lacks a finite dice under its tag")
@@ -1722,6 +1848,7 @@ def cm_cli_phase(work: Path, data_dir: str, mae_per_step: dict):
     from cmx_torch.ckpt.checkpoint import load_encoder
     from cmx_torch.cli.pretrain import main as pretrain_main
     from cmx_torch.models.unet import UNet
+    from cmx_torch.train.graph import REPORTS
 
     t0 = time.perf_counter()
     wrappers = {name: k[0] for name, k in kernels().items()}
@@ -1737,12 +1864,15 @@ def cm_cli_phase(work: Path, data_dir: str, mae_per_step: dict):
                                       "model.fused_conv=True"])):
         for fn in wrappers.values():
             fn.launches = 0
+        since = len(REPORTS)
         tee = _Tee(sys.stdout)
         with contextlib.redirect_stdout(tee):
             out = pretrain_main(["--task", task, "--preset"] + base + args
                                 + [f"train.ckpt_dir={work}/cm_ckpt"])
         torch.cuda.synchronize()
-        launches = {n: fn.launches for n, fn in wrappers.items()}
+        launches = graph_launches(
+            wrappers, since, {} if task == "cmunet" else mae_per_step,
+            "CM-CLI")
         steps = out["steps_per_epoch"] * (out["epochs_run"] - (
             runs[-1][1]["epochs_run"] if task == "cmunet" and runs else 0))
         val = out["val_batches"] * (1 if task == "mae_tuned" else 0)
@@ -1755,13 +1885,18 @@ def cm_cli_phase(work: Path, data_dir: str, mae_per_step: dict):
                            "".join(tee.lines))
         resumed = re.findall(r"resumed from step (\d+)", "".join(tee.lines))
         print(f"CM-CLI --task {task} --preset {' '.join(args)}: "
-              f"{steps} training steps, {out['val_batches']} validation "
+              f"{steps} training steps ({graphs_since(since)}), "
+              f"{out['val_batches']} validation "
               f"batches an epoch, resumed from {resumed or 'none'}; epoch "
               f"img/s " + ", ".join(f"epoch {e}: {r} img/s in {t} s"
                                     for e, t, r in rates)
-              + f"; launches {launches} (expected {expect})", flush=True)
-        if launches != expect:
-            fail(f"the {task} CLI run did not launch the expected kernels")
+              + f"; launches (eager calls + capture calls x replays) "
+              f"{launches} (expected {expect})", flush=True)
+        g = out["graph"]
+        if launches != expect or (g["eager_steps"], g["replays"]) != (
+                1, steps - 1):
+            fail(f"the {task} CLI run did not launch the expected kernels "
+                 f"or was not replayed from its graph ({g})")
         runs.append((task, out))
     cm = runs[1][1]
     if [r[1]["state"].step for r in runs[:2]] != [
@@ -1916,10 +2051,13 @@ def one_epoch_cli(label: str, work: Path, data_dir: str, task: str,
     from cmx_torch.cli.pretrain import main as pretrain_main
     from cmx_torch.models.unet import UNet
 
+    from cmx_torch.train.graph import REPORTS
+
     t0 = time.perf_counter()
     wrappers = {name: k[0] for name, k in kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
+    since = len(REPORTS)
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         out = pretrain_main([
@@ -1929,18 +2067,23 @@ def one_epoch_cli(label: str, work: Path, data_dir: str, task: str,
             f"train.batch_size={CM_CLI_BATCH}", "train.patience=5",
             "train.epochs=1", f"train.ckpt_dir={work}/{label}_ckpt"] + args)
     torch.cuda.synchronize()
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    launches = graph_launches(wrappers, since, per_step, label)
     steps, val = out["state"].step, out["val_batches"]
     expect = {n: per_step.get(n, 0) * steps + val_calls.get(n, 0) * val
               for n in wrappers}
     rates = re.findall(r"epoch (\d+): .*?\(([\d.]+)s, ([\d.]+) img/s\)",
                        "".join(tee.lines))
     print(f"{label} --task {task} --preset {' '.join(args)}: {steps} "
-          f"training steps, {val} validation batches; epoch img/s "
+          f"training steps ({graphs_since(since)}), {val} validation "
+          f"batches; epoch img/s "
           + ", ".join(f"epoch {e}: {r} img/s in {t} s" for e, t, r in rates)
-          + f"; launches {launches} (expected {expect})", flush=True)
-    if launches != expect or not steps or not val:
-        fail(f"the {label} CLI run did not launch the expected kernels")
+          + f"; launches (eager calls + capture calls x replays) {launches} "
+          f"(expected {expect})", flush=True)
+    g = out["graph"]
+    if (launches != expect or not steps or not val
+            or (g["eager_steps"], g["replays"]) != (1, steps - 1)):
+        fail(f"the {label} CLI run did not launch the expected kernels or "
+             f"was not replayed from its graph ({g})")
     with open(Path(out["ckpt_dir"]) / "log.jsonl") as f:
         log = [json.loads(line) for line in f]
     if [r["epoch"] for r in log] != [0] or not all(
@@ -3033,8 +3176,10 @@ def dp_cli_phase(work: Path, data_dir: str) -> dict:
     with cuDNN's deterministic algorithms: in this process without a group,
     and under torch's launcher, `torchrun --nproc_per_node 1` (NCCL, world
     1; where torchrun is not on the PATH, the launcher's variables set by
-    hand). Its encoder.npz must equal the single-process run's bit for
-    bit, and its log.jsonl hold the same losses."""
+    hand), both through their CUDA graphs (train.scan; the launcher's
+    with its NCCL all-reduces captured). Its encoder.npz must equal the
+    single-process run's bit for bit, its log.jsonl hold the same losses,
+    and its log say that its steps were replayed from a graph."""
     import os
     import shutil
 
@@ -3075,22 +3220,238 @@ def dp_cli_phase(work: Path, data_dir: str) -> dict:
             np.load(Path(work) / "dp_run" / "spark" / "encoder.npz") as b:
         same = sorted(a.files) == sorted(b.files) and all(
             np.array_equal(a[k], b[k]) for k in a.files)
-    group = re.search(r"process group: (\w+) rank (\d+) of (\d+)",
-                      (Path(work) / "DP-CLI.0.log").read_text())
+    run_log = (Path(work) / "DP-CLI.0.log").read_text()
+    group = re.search(r"process group: (\w+) rank (\d+) of (\d+)", run_log)
+    replayed = re.search(r"train\.scan: 1 eager step\(s\), (\d+) replays",
+                         run_log)
     how = ("torchrun --nproc_per_node 1" if torchrun
            else "the launcher's variables set by hand")
     print(f"DP-CLI: {how} ({group.group(0) if group else 'no group line'}):"
           f" encoder.npz bit for bit the single-process run's: {same}; loss "
           f"{logs[1][0]['loss']:.9g} / {logs[0][0]['loss']:.9g}, val_loss "
           f"{logs[1][0]['val_loss']:.9g} / {logs[0][0]['val_loss']:.9g}; "
-          f"the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+          f"the launcher's steps replayed from a CUDA graph under the NCCL "
+          f"group: {replayed.group(0) if replayed else 'no'}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     losses = [[(r["loss"], r["val_loss"]) for r in log] for log in logs]
     if not same or losses[0] != losses[1]:
         fail("DP-CLI: the launcher's run is not the single-process run")
     if not group or group.group(1) != "nccl" or group.group(3) != "1":
         fail("DP-CLI: the launcher's run made no NCCL group of one process")
+    if not replayed or not int(replayed.group(1)):
+        fail("DP-CLI: the launcher's run replayed no step from its graph")
     return {"same": same, "torchrun": bool(torchrun)}
 
+
+
+GRAPH_STEPS = 6  # GRAPH: N eager steps against warm-up, capture, N-1 replays
+
+
+def graph_cases():
+    """(label, make) of the GRAPH phase: make() -> (state, step, batch) as
+    the eager phases build them (the batch is the corpus the steps gather
+    their rows from)."""
+    from cmx_torch.train.schedules import scaled_base_lr, warmup_cosine
+
+    def cm(batch):
+        cfg = make_cm_cfg(batch)
+        lr = warmup_cosine(scaled_base_lr(cfg.optim.lr, batch),
+                           cfg.train.epochs, cfg.optim.warmup_epochs)
+        return make_step(cfg, lr=lr, seed=0)
+
+    return [
+        (f"SparK b{BATCH}", lambda: make_step(make_cfg(BATCH))),
+        (f"FT1 b{BATCH}", lambda: make_ft_step(True, BATCH)),
+        (f"MAE1 b{MAE_BATCH}", lambda: make_step(make_mae_cfg(MAE_BATCH,
+                                                              True))),
+        (f"G1 b{GENESIS_BATCH}", lambda: make_step(make_genesis_cfg(
+            GENESIS_BATCH, True))),
+        (f"MoCo-pallas b{MOCO_BATCH}", lambda: make_step(make_moco_cfg(
+            MOCO_BATCH, "pallas"))),
+        (f"MoCo-fast b{MOCO_BATCH}", lambda: make_step(make_moco_fast_cfg(
+            MOCO_BATCH))),
+        (f"CM1 b{CM_BATCH}", lambda: cm(CM_BATCH)),
+        # the tightest fit on one card: CM-UNet at 128 (eager 53.25 GiB)
+        (f"CM1 b{2 * CM_BATCH}", lambda: cm(2 * CM_BATCH)),
+        (f"RM b{RM_BATCH}", lambda: make_step(make_rm_cfg("spark", RM_BATCH,
+                                                          ""))),
+    ]
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state by name: parameters and buffers, the
+    optimizer's state, and the task's `extra` (its modules' too)."""
+    import torch
+
+    out = {f"model/{n}": t for n, t in state.model.state_dict().items()}
+    for k, v in state.opt.state_dict().items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            out[f"opt/{k}/{i}"] = t
+    for k, v in (state.extra or {}).items():
+        if isinstance(v, torch.nn.Module):
+            out.update({f"extra/{k}/{n}": t
+                        for n, t in v.state_dict().items()})
+        else:
+            out[f"extra/{k}"] = v
+    return out
+
+
+def port_kernel_counts(prof, n: int) -> dict:
+    """The port's device kernels in a profile of n steps, launches a step
+    by kernel name, and the device's busy ms a step."""
+    from torch.autograd import DeviceType
+
+    ks = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ks) / 1e3 / n
+    return {e.key: e.count / n for e in ks
+            if any(k in e.key for k in PORT_KERNEL_NAMES)}, busy
+
+
+def graph_case(label: str, build, steps: int) -> dict:
+    """One GRAPH case. N eager steps (make_train_step, a fresh generator a
+    step) on a state, its tensors kept, then two profiled eager steps;
+    that state freed, the same N steps through a StepGraph (warm-up,
+    capture, N-1 replays) on a second state from the same seeds, each
+    step's batch gathered from the same corpus by the same permutation:
+    every tensor of the states and every metric bit for bit; then two
+    profiled replays: the port's kernels by name equal to the eager steps',
+    the capture's wrapper calls equal to an eager step's; step times (the
+    last N-2 steps of each run, back to back), busy shares, capture
+    seconds, peak memory. cuDNN runs its deterministic algorithms."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmx_torch.train.graph import StepGraph, launch_counts
+
+    t_case = time.perf_counter()
+    out = {"label": label}
+    for kind in ("eager", "graph"):
+        state, step, corpus = build()
+        c = corpus if isinstance(corpus, tuple) else (corpus,)
+
+        def gather(idx, c=c):
+            rows = tuple(t.index_select(0, idx) for t in c)
+            return rows if len(rows) > 1 else rows[0]
+
+        g = torch.Generator().manual_seed(7)
+        idxs = torch.stack([torch.randperm(c[0].shape[0], generator=g)
+                            for _ in range(steps + 2)]).to("cuda")
+        graph = (StepGraph(step.body, gather, "cuda", label=label)
+                 if kind == "graph" else None)
+
+        def one(idx):
+            if graph is not None:
+                return graph.step(state, idx)
+            m = step(state, gather(idx))
+            return torch.stack([m[k].float() for k in m]), list(m)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for i in range(steps):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            r = one(idxs[i])
+            if graph is None:
+                r, names = r
+            rows.append(r)
+        torch.cuda.synchronize()
+        out[f"{kind}_ms"] = (time.perf_counter() - t0) / (steps - 2) * 1e3
+        out[f"peak_{kind}"] = torch.cuda.max_memory_allocated() / 2**30
+        if kind == "eager":
+            eager_rows = torch.stack(rows)
+            kept = {n: t.clone() for n, t in state_tensors(state).items()}
+        else:
+            graph_rows = torch.stack(rows)
+            differ = [n for n, t in state_tensors(state).items()
+                      if not torch.equal(t, kept[n])]
+        before = launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for idx in idxs[steps:]:
+                one(idx)
+            torch.cuda.synchronize()
+        after = launch_counts()
+        kernels_a_step, busy = port_kernel_counts(prof, 2)
+        out[f"kernels_{kind}"] = kernels_a_step
+        out[f"busy_{kind}"] = busy / out[f"{kind}_ms"]
+        out[f"calls_{kind}"] = {k: (after[k] - before[k]) // 2
+                                for k in after if after[k] != before[k]}
+        if graph is not None:
+            rep = graph.report
+            graph_names = graph.names
+        del state, step, corpus, c, graph, prof, one, gather
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_m = torch.equal(eager_rows, graph_rows)
+    finite = bool(torch.isfinite(graph_rows).all())
+    out.update(ratio=out["graph_ms"] / out["eager_ms"],
+               capture_s=rep["capture_s"],
+               pool_gib=rep["pool_bytes"] / 2**30,
+               capture_calls=rep["capture_calls"], replays=rep["replays"],
+               bit_for_bit=not differ and same_m)
+    print(f"GRAPH {label}: {steps} eager steps vs warm-up + capture + "
+          f"{steps - 1} replays: {len(kept)} state tensors, "
+          f"{len(kept) - len(differ)} equal bit for bit, metrics equal "
+          f"{same_m}, finite {finite}; step_ms eager={out['eager_ms']:.3f} "
+          f"graph={out['graph_ms']:.3f} (graph/eager {out['ratio']:.3f}); "
+          f"busy eager {100 * out['busy_eager']:.1f}% graph "
+          f"{100 * out['busy_graph']:.1f}%; capture {rep['capture_s']:.3f} s, "
+          f"its pool {out['pool_gib']:.2f} GiB, peak "
+          f"{out['peak_eager']:.2f} GiB eager / {out['peak_graph']:.2f} GiB "
+          f"with the graph; wrapper calls at capture {rep['capture_calls']} "
+          f"(an eager step's {out['calls_eager']}, a replay's "
+          f"{out['calls_graph'] or 'none'}); the port's kernels a step "
+          f"(profiler), {len(out['kernels_graph'])} kernels: a replay "
+          f"{sum(out['kernels_graph'].values()):g} launches, an eager step "
+          f"{sum(out['kernels_eager'].values()):g}; case "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+    if differ or not same_m or graph_names != names:
+        fail(f"GRAPH {label}: the graph's steps differ from the eager ones: "
+             f"{differ[:8]} ({len(differ)} tensors), metrics equal {same_m}")
+    if not finite or rep["eager_steps"] != 1 or rep["replays"] != steps + 1:
+        fail(f"GRAPH {label}: not finite, or {rep['eager_steps']} eager "
+             f"steps and {rep['replays']} replays")
+    if (rep["capture_calls"] != out["calls_eager"] or out["calls_graph"]
+            or out["kernels_graph"] != out["kernels_eager"]):
+        fail(f"GRAPH {label}: the replay's kernels {out['kernels_graph']} or "
+             f"the capture's calls {rep['capture_calls']} are not an eager "
+             f"step's ({out['kernels_eager']}, {out['calls_eager']})")
+    return out
+
+
+def graph_phase(steps: int = GRAPH_STEPS) -> list:
+    """Phase GRAPH (see the module docstring). Returns each case's
+    numbers."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for label, build in graph_cases():
+            out.append(graph_case(label, build, steps))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print("GRAPH (same call; step_ms eager / graph, ratio, busy eager / "
+          "graph, capture s, peak GiB eager / graph): " + "; ".join(
+              f"{r['label']} {r['eager_ms']:.3f} / {r['graph_ms']:.3f} "
+              f"{r['ratio']:.3f} {100 * r['busy_eager']:.1f}% / "
+              f"{100 * r['busy_graph']:.1f}% {r['capture_s']:.3f} s "
+              f"{r['peak_eager']:.2f} / {r['peak_graph']:.2f}" for r in out)
+          + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -3104,6 +3465,8 @@ def main(argv=None) -> int:
     p.add_argument("--views", action="store_true",
                    help="build the kernels, then run phases MF, VIEWS, CMB "
                         "and MF-CLI alone")
+    p.add_argument("--graph", action="store_true",
+                   help="build the kernels, then run phase GRAPH alone")
     p.add_argument("--dp-rank", type=int, default=None,
                    help="(spawned by DP2) run as this rank of the gloo group "
                         "its environment describes")
@@ -3149,6 +3512,10 @@ def main(argv=None) -> int:
     _build.build_all()
     print(f"phase 0: kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    if args.graph:
+        graph_phase()
+        print(smi, flush=True)
+        return 0
     if args.dp or args.views:
         scratch = repo / "_scratch"
         scratch.mkdir(exist_ok=True)
@@ -3329,6 +3696,7 @@ def main(argv=None) -> int:
         for r in rm.values():
             for c in ("plain", "remat"):
                 rm_launches.update(r[c]["launches"])
+    graph = graph_phase()
 
     crops = kern["crop_resize_pallas"]["crops"]
     crop_px = [sum(r * c for r, c in zip(rows, cols))
@@ -3354,6 +3722,14 @@ def main(argv=None) -> int:
                    for n in MOCO_KERNELS},
                 **{n: nhwc_launches[n]
                    for n in (*NHWC_KERNELS, "bn_relu_mask_pallas")}}
+    # launches inside replays: every graph of this process (GRAPH's, the
+    # CLI phases', FT-CLI's fits), its capture calls times its replays
+    from cmx_torch.train.graph import REPORTS
+
+    replayed = collections.Counter()
+    for rep in REPORTS:
+        for n, c in rep["capture_calls"].items():
+            replayed[n] += c * rep["replays"]
     rows = []
     entries = kernels()
     for name, (_, _, route, source, replaces) in entries.items():
@@ -3371,6 +3747,9 @@ def main(argv=None) -> int:
                      entries["spark_loss_bwd"][4])):
                 pms, pby = rl.bound_ms(kk["nbytes"], kk["flops"], kk["peak"])
                 parts[part] = {"replaces": rep, "launches": nn,
+                               "launches_in_replays": replayed[
+                                   "spark_loss_pallas" if part == "forward"
+                                   else "spark_loss_bwd"],
                                "max_abs_err": kk["max_abs_err"],
                                "ms": kk["ms"], "plain_ms": kk["plain_ms"],
                                "bound_ms": pms, "bound_by": pby,
@@ -3385,8 +3764,11 @@ def main(argv=None) -> int:
             n += launches["spark_loss_bwd"]
             resources = resources + CORE_KERNELS["spark_loss_bwd"]
         bms, by = rl.bound_ms(k["nbytes"], k["flops"], k["peak"])
+        n_replayed = replayed[name] + (replayed["spark_loss_bwd"]
+                                       if name == "spark_loss_pallas" else 0)
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces, "launches": n,
+                     "launches_in_replays": n_replayed,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": k["library_ms"]})
@@ -3422,7 +3804,11 @@ def main(argv=None) -> int:
           f"{vp['mf_cli_s']:.1f} s; EV {ev['secs']:.1f} s; DP1 "
           f"(NCCL, world 1) step_ms={dp['dp1']['step_ms']:.3f}, DP2 (gloo, 2 "
           f"ranks on one card) step_ms per rank "
-          f"{', '.join(f'{t:.3f}' for t in dp['dp2']['step_ms'])}",
+          f"{', '.join(f'{t:.3f}' for t in dp['dp2']['step_ms'])}; "
+          f"launches_in_replays: each graph's capture calls times its "
+          f"replays (GRAPH's {len(graph)} cases, the CLI phases, FT-CLI's "
+          f"fits); GRAPH graph/eager step_ms "
+          + ", ".join(f"{r['label']} {r['ratio']:.3f}" for r in graph),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

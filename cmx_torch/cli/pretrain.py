@@ -29,10 +29,15 @@ every process the same rows), and its losses are global. The device feed
 stays single-process, as in cmx.
 
 Differences from cmx's CLI, each for a reason:
-  * `train.scan`: cmx compiles segments of steps into one `lax.scan`
-    program; the port reads the key and runs its per-step loop over the
-    same index stream, the indices of a segment uploaded at once (a CUDA
-    graph of the step is the counterpart: ROADMAP).
+  * `train.scan`: cmx compiles a segment of steps (row gather and train
+    step) into one `lax.scan` program. The port captures the gather and
+    the step's body once as a CUDA graph and replays it for every step of
+    every segment (`make_device_feed`'s scan_run, cmx_torch.train.graph):
+    the run's first step runs eagerly, the second is captured. Under the
+    same conditions as cmx's (the device feed, one process, train.scan);
+    --device cpu runs the same segments eagerly. A step replayed from the
+    graph equals the eager step bit for bit where cuDNN is deterministic
+    (torch.backends.cudnn.deterministic), as two eager runs do.
   * Resume: the sampler starts at the resumed epoch, so a resumed run draws
     the batches an uninterrupted one does (cmx's restarts its permutation
     stream at epoch 0); step draws are keyed by (seed, step) in both. With
@@ -44,8 +49,8 @@ Differences from cmx's CLI, each for a reason:
     counterpart: nothing here is compiled ahead (the CUDA kernels build
     once into cmx_torch/_build/).
   * `main` returns a summary of the run (the state, the loader used,
-    whether the device feed ran, the steps and validation batches an epoch,
-    the exported paths) besides printing it.
+    whether the device feed ran, the graph's report, the steps and
+    validation batches an epoch, the exported paths) besides printing it.
 """
 
 from __future__ import annotations
@@ -177,6 +182,38 @@ def load_pretrain_images(cfg: Config) -> Tuple[np.ndarray, str]:
         extra, _ = load_corpus(extra_paths, None, size=cfg.data.image_size)
         imgs = np.concatenate([imgs, extra], axis=0)
     return imgs, loader
+
+
+def make_device_feed(imgs: np.ndarray, device, task: Optional[Task] = None,
+                     tx=None, scan: bool = True):
+    """The device-resident corpus feed and the segment runner, as cmx's
+    make_device_feed. Returns (corpus_dev, fetch, scan_run):
+      * corpus_dev: the pretrain corpus on `device` (one upload);
+      * fetch(corpus_dev, idx): the batch, an on-device row gather;
+      * scan_run(state, idxs): when `scan` and a task and tx are given,
+        runs idxs.shape[0] train steps (the gather and the step), on a card
+        replayed from one CUDA graph (cmx_torch.train.graph.StepGraph;
+        `scan_run.graph` is it, with its report), and returns each metric
+        stacked (s,) on the device; None otherwise."""
+    corpus_dev = torch.from_numpy(np.ascontiguousarray(imgs)).to(device)
+
+    def fetch(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return corpus.index_select(0, idx)
+
+    if not scan or task is None:
+        return corpus_dev, fetch, None
+    from cmx_torch.train.graph import StepGraph
+    from cmx_torch.train.trainer import make_train_body
+
+    graph = StepGraph(make_train_body(task, tx),
+                      lambda idx: fetch(corpus_dev, idx), corpus_dev.device,
+                      label=task.name)
+
+    def scan_run(state, idxs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return graph.run(state, idxs)
+
+    scan_run.graph = graph
+    return corpus_dev, fetch, scan_run
 
 
 def _generator(dev: torch.device, seed: int) -> torch.Generator:
@@ -396,16 +433,14 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
                 cfg.task.num_negatives, model.emb_dim)
 
     # Device-resident corpus feed (DataConfig.device_feed): one upload, then
-    # an on-device row gather (index_select) per step.
-    corpus_dev = None
+    # an on-device row gather (index_select) per step; with train.scan the
+    # segments of steps run through `scan_run` (a CUDA graph on the card).
+    corpus_dev = fetch = scan_run = None
     if (cfg.data.device_feed and world == 1
             and imgs.nbytes <= cfg.data.device_feed_max_bytes):
-        corpus_dev = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+        corpus_dev, fetch, scan_run = make_device_feed(
+            imgs, dev, task=task, tx=tx, scan=cfg.train.scan)
         print(f"device feed: corpus resident ({imgs.nbytes / 1e6:.0f} MB)")
-    # train.scan: the indices of a segment (scan_budget samples) are drawn
-    # from the sampler and uploaded at once; the steps run one by one.
-    seg = (max(1, cfg.train.scan_budget // per_host_batch)
-           if cfg.train.scan and corpus_dev is not None else 1)
 
     best_val = float("inf")
     bad_epochs = 0
@@ -419,31 +454,40 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
         t0 = time.time()
         with trace(cfg.train.profile_dir if profile_this else None,
                    f"trace_ep{ep}.json", dev) as trace_path:
-            step_metrics = []
-            # per-iteration progress for long epochs; metric VALUES still
-            # reach the host once per epoch below.
-            freq = (cfg.train.log_every
-                    if steps_per_epoch > cfg.train.log_every else 0)
-            steps = (logger.log_every(range(steps_per_epoch), freq,
-                                      header=f"ep{ep}")
-                     if freq else range(steps_per_epoch))
-            idxs = None
-            for i in steps:
-                if i % seg == 0:
-                    n = min(seg, steps_per_epoch - i)
+            if scan_run is not None:
+                # segments of scan_budget samples: their indices uploaded
+                # at once, their steps replayed from the graph
+                seg = max(1, cfg.train.scan_budget // per_host_batch)
+                parts, done = [], 0
+                while done < steps_per_epoch:
+                    s = min(seg, steps_per_epoch - done)
                     idxs = torch.from_numpy(np.stack(
-                        [next(it) for _ in range(n)]).astype(np.int64))
+                        [next(it) for _ in range(s)]).astype(np.int64))
+                    parts.append(scan_run(state, idxs.to(dev)))
+                    done += s
+                names = list(parts[0])
+                cols = torch.stack([torch.cat([p[k] for p in parts])
+                                    for k in names], dim=1)
+                vals = cols.cpu().tolist()  # one host transfer per epoch
+            else:
+                step_metrics = []
+                # per-iteration progress for long epochs; metric VALUES
+                # still reach the host once per epoch below.
+                freq = (cfg.train.log_every
+                        if steps_per_epoch > cfg.train.log_every else 0)
+                steps = (logger.log_every(range(steps_per_epoch), freq,
+                                          header=f"ep{ep}")
+                         if freq else range(steps_per_epoch))
+                for _ in steps:
+                    idx = torch.from_numpy(next(it).astype(np.int64))
                     if corpus_dev is not None:
-                        idxs = idxs.to(dev)
-                idx = idxs[i % seg]
-                if corpus_dev is not None:
-                    batch = corpus_dev.index_select(0, idx)
-                else:
-                    batch = torch.from_numpy(imgs[idx.numpy()]).to(dev)
-                step_metrics.append(step_fn(state, batch))  # no sync
-            # One host transfer per epoch.
-            names = list(step_metrics[0])
-            vals = _to_host(step_metrics, names)
+                        batch = fetch(corpus_dev, idx.to(dev))
+                    else:
+                        batch = torch.from_numpy(imgs[idx.numpy()]).to(dev)
+                    step_metrics.append(step_fn(state, batch))  # no sync
+                # One host transfer per epoch.
+                names = list(step_metrics[0])
+                vals = _to_host(step_metrics, names)
         for row in vals:
             logger.update(**dict(zip(names, row)))
         dt = time.time() - t0
@@ -504,6 +548,13 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
             tb.log_dict(epoch_metrics, ep)
         if cfg.train.save_every_epoch or ep == cfg.train.epochs - 1:
             mgr.save(state.step, state, config=to_dict(cfg))
+    graph = None if scan_run is None else scan_run.graph.report
+    if graph is not None and graph["capture_s"] is not None:
+        print(f"train.scan: {graph['eager_steps']} eager step(s), "
+              f"{graph['replays']} replays of one CUDA graph captured in "
+              f"{graph['capture_s']:.3f} s (its pool "
+              f"{graph['pool_bytes'] / 2**30:.2f} GiB; kernel wrapper calls "
+              f"at capture {graph['capture_calls']})")
     encoder_path = os.path.join(ckpt_dir, "encoder.npz")
     export_encoder(state, encoder_path)
     export_model(state, os.path.join(ckpt_dir, "model.npz"))
@@ -524,7 +575,8 @@ def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
     n_val_batches = (0 if val_imgs is None
                      else len(val_imgs) // cfg.train.batch_size)
     return {"state": state, "ckpt_dir": ckpt_dir, "loader": loader,
-            "device_feed": corpus_dev is not None, "epochs_run": int(ep) + 1,
+            "device_feed": corpus_dev is not None, "graph": graph,
+            "epochs_run": int(ep) + 1,
             "steps_per_epoch": steps_per_epoch, "val_batches": n_val_batches,
             "best_val_loss": None if best_val == float("inf") else best_val,
             "encoder": encoder_path, "stamp": stamp_path,

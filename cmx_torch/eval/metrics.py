@@ -57,11 +57,14 @@ def _threshold(x: torch.Tensor, threshold: Optional[float]) -> torch.Tensor:
 
 def _take_channels(*xs: torch.Tensor,
                    ignore_channels: Optional[Sequence[int]]):
-    """Drop the listed class channels (axis 1)."""
+    """Drop the listed class channels (axis 1): the kept ones are sliced
+    and concatenated (an index list would be copied from the host, which a
+    CUDA graph cannot capture)."""
     if ignore_channels is None:
         return xs
     keep = [c for c in range(xs[0].shape[1]) if c not in ignore_channels]
-    return tuple(x[:, keep] for x in xs)
+    return tuple(torch.cat([x[:, c:c + 1] for c in keep], dim=1) if keep
+                 else x[:, :0] for x in xs)
 
 
 # ---------------------------------------------------------------- f-score / dice

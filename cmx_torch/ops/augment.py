@@ -518,8 +518,8 @@ def moco_view_tail_matmul(rot: torch.Tensor, d: dict, out_size: int,
                            ratio)
     n_taps = 2 * blur_radius + 1
     taps = _gaussian_kernel_1d(d["sigma"].to(dev), blur_radius)
-    delta = torch.zeros((n_taps,), device=dev)
-    delta[blur_radius] = 1.0
+    # made on the device: a scalar written into it is copied from the host
+    delta = (torch.arange(n_taps, device=dev) == blur_radius).float()
     taps = torch.where(d["blur_apply"].to(dev)[:, None], taps, delta[None, :])
     basis = _on_device(_BLUR_BASIS_TENSORS, (out_size, blur_radius),
                        lambda: _blur_basis(out_size, blur_radius), dev)

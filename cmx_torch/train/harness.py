@@ -25,9 +25,13 @@ epoch's batches come from and how it is validated:
     `evaluate` every epoch, the host metrics every host_metrics_every
     epochs;
   * the counterpart of cmx's `_fit_scan` (the default): each epoch a
-    permutation of the n training samples, wrap-tiled to steps x batch, and
-    one frozen-BN forward of the whole validation set with its full device
-    metric set (soft-clDice included). Deviation: cmx draws the permutation
+    permutation of the n training samples, wrap-tiled to steps x batch, its
+    steps run by one `StepGraph` for the fit (cmx_torch.train.graph: on a
+    card the first step eager, the second captured as a CUDA graph -- the
+    gather xtr[c], ytr[c] from a static chunk buffer and the supervised
+    step -- and every later step replayed; the capture seconds are
+    printed), and one frozen-BN forward of the whole validation set with
+    its full device metric set (soft-clDice included), eager. Deviation: cmx draws the permutation
     with jax.random.permutation(fold_in(key(seed ^ 0x5EED), epoch)), which
     torch cannot reproduce; here it comes from a torch generator keyed on
     (seed ^ 0x5EED, epoch). Tests inject cmx's permutations.
@@ -56,8 +60,9 @@ from cmx_torch.eval.metrics import segmentation_metrics
 from cmx_torch.models.unet import UNet
 from cmx_torch.train.optim import Adam
 from cmx_torch.train.state import TrainState
+from cmx_torch.train.graph import StepGraph
 from cmx_torch.train.supervised import make_eval_fn, make_supervised_task
-from cmx_torch.train.trainer import make_train_step
+from cmx_torch.train.trainer import make_train_body, make_train_step
 from cmx_torch.utils.logging import AverageMeter
 
 
@@ -204,13 +209,19 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
     task, _ = make_supervised_task(net, augment=augment)
     tx = Adam(net.named_parameters(), lr)
     state = TrainState.create(model=net, tx=tx, seed=seed)
-    step = make_train_step(task, tx)
     eval_fn = make_eval_fn(net)
     xtr, ytr = upload_set(imgs_train, masks_train, dev)
     xva, yva = upload_set(imgs_valid, masks_valid, dev)
     n = xtr.shape[0]
     scan = not host_metrics_every and xva.shape[0] > 0
     host_rng = np.random.default_rng(seed)
+    if scan:  # one graph for the fit: every chunk has `batch` rows
+        graph = StepGraph(
+            make_train_body(task, tx),
+            lambda c: (xtr.index_select(0, c), ytr.index_select(0, c)),
+            dev, label="fit")
+    else:
+        step = make_train_step(task, tx)
 
     live = list(net.state_dict().values())
     best = [t.detach().clone() for t in live]
@@ -220,15 +231,15 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
         if scan:
             chunks = _epoch_chunks(n, batch, seed, ep, dev,
                                    None if perms is None else perms[ep])
-        else:
-            chunks = [torch.from_numpy(c).to(dev)
-                      for c in _batches(n, batch, host_rng)]
-        ms = [step(state, (xtr[c], ytr[c])) for c in chunks]
-        tms.append({k: torch.stack([m[k].float() for m in ms]).mean()
-                    for k in ms[0]})
-        if scan:
+            tms.append({k: v.mean()
+                        for k, v in graph.run(state, chunks).items()})
             vm = segmentation_metrics(eval_fn(xva), yva)
         else:
+            ms = [step(state, (xtr[c], ytr[c])) for c in (
+                torch.from_numpy(c).to(dev) for c in _batches(n, batch,
+                                                               host_rng))]
+            tms.append({k: torch.stack([m[k].float() for m in ms]).mean()
+                        for k in ms[0]})
             vm = evaluate(eval_fn, xva, yva, batch=batch,
                           host=bool(host_metrics_every)
                           and (ep + 1) % host_metrics_every == 0)
@@ -245,6 +256,9 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
     train_logs = _columns(_to_host(tms))
     valid_logs = _columns(_to_host(vms) if scan else vms)
     best_ep = find_best_epochs(valid_logs)
+    if scan and graph.report["capture_s"] is not None:
+        print(f"fit: {graph.report['replays']} steps replayed from one CUDA "
+              f"graph captured in {graph.report['capture_s']:.3f} s")
     if verbose:
         print(f"fit {epochs} epochs: train {train_logs['loss'][-1]:.4f} "
               f"best valid dice_loss {min(valid_logs['dice_loss']):.4f}")

@@ -30,11 +30,17 @@ class TrainState:
                extra: Any = None) -> "TrainState":
         return cls(step=0, model=model, opt=tx, seed=seed, extra=extra)
 
+    def step_seed(self) -> int:
+        """The seed of this step's draws, from (seed, step)."""
+        return (self.seed * 1_000_003 + self.step) % (2 ** 63)
+
     def step_generator(self, device) -> torch.Generator:
         """A generator on `device` seeded from (seed, step): the step's
-        draws do not depend on how many draws earlier steps made."""
+        draws do not depend on how many draws earlier steps made. (A
+        generator re-seeded with `step_seed()` draws the same numbers:
+        cmx_torch.train.graph keeps one for a run.)"""
         gen = torch.Generator(device=device)
-        gen.manual_seed((self.seed * 1_000_003 + self.step) % (2 ** 63))
+        gen.manual_seed(self.step_seed())
         return gen
 
 

@@ -5,12 +5,14 @@ A task is a `Task`: `loss_fn(model, batch, gen, draws, extra)` returning
 `extra`) update in place during its forward. An optional
 `post_update(state, aux)` refreshes the task state after the optimizer
 update (MoCo: key-encoder EMA, queue): it returns `(target, new value)`
-pairs, all computed before any is written. The step: step-keyed
-randomness, loss and gradients, the global gradient norm, the optimizer
-update, the post-update, and the NaN guard, which keeps parameters,
-optimizer state, BN running stats and every tensor of `extra` when the loss
-or the gradient norm is not finite (decided on the device; no host
-synchronisation).
+pairs, all computed before any is written. The step is the body -- loss
+and gradients, the global gradient norm, the optimizer update, the
+post-update, and the NaN guard, which keeps parameters, optimizer state, BN
+running stats and every tensor of `extra` when the loss or the gradient
+norm is not finite (decided on the device; no host synchronisation) --
+with draws from a generator seeded from (seed, step), then the host's
+bookkeeping: the step counter. A CUDA graph captures the body alone
+(cmx_torch.train.graph).
 
 Under data parallel (cmx_torch.parallel.mesh) every rank runs the step on
 its B/W rows of the global batch: the task's draws are made for the global
@@ -58,22 +60,23 @@ def extra_buffers(extra: Any) -> List[torch.Tensor]:
             for b in v.buffers()]
 
 
-def make_train_step(task: Task, tx) -> Callable:
-    """step(state, batch, draws=None) -> metrics; updates `state` in place.
+def make_train_body(task: Task, tx) -> Callable:
+    """body(state, batch, gen, draws=None) -> metrics: one step's device
+    work with the step's draws from `gen`, state updated in place; the
+    step counter is not advanced. It makes no host synchronisation, no
+    copy from the host and no tensor of a data-dependent shape, so a CUDA
+    graph can capture it (cmx_torch.train.graph); its metrics are tensors
+    the caller can hold.
 
     Metrics: the task's (SparK: `recon`; MoCo: `acc1`, `acc5`; supervised:
     `dice_loss`, `cross_entropy_loss`, `iou_loss`), `loss`,
     `grad_norm`, `nonfinite` (0-d device tensors)."""
 
-    def step(state: TrainState, batch: Any,
+    def body(state: TrainState, batch: Any, gen: torch.Generator,
              draws: Optional[Dict[str, Any]] = None
              ) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
-        # a tensor (SparK, MoCo) or a tuple of tensors (supervised: images,
-        # masks): the step's generator lives on the first one's device
-        lead = batch[0] if isinstance(batch, (tuple, list)) else batch
-        gen = state.step_generator(lead.device)
         buffers = list(model.buffers()) + extra_buffers(state.extra)
         old_buffers = [b.clone() for b in buffers]
         params = tx.params
@@ -91,11 +94,31 @@ def make_train_step(task: Task, tx) -> Callable:
             if task.post_update is not None:
                 for target, new in task.post_update(state, aux):
                     target.copy_(torch.where(finite, new, target))
-        state.step += 1
         metrics = dict(aux.metrics)
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = gnorm
         metrics["nonfinite"] = 1.0 - finite.float()
         return metrics
 
+    return body
+
+
+def make_train_step(task: Task, tx) -> Callable:
+    """step(state, batch, draws=None) -> metrics (`make_train_body`'s);
+    updates `state` in place: the body with a generator seeded from
+    (seed, step) (`TrainState.step_generator`), then the step counter.
+    `step.body` is the body."""
+    body = make_train_body(task, tx)
+
+    def step(state: TrainState, batch: Any,
+             draws: Optional[Dict[str, Any]] = None
+             ) -> Dict[str, torch.Tensor]:
+        # a tensor (SparK, MoCo) or a tuple of tensors (supervised: images,
+        # masks): the step's generator lives on the first one's device
+        lead = batch[0] if isinstance(batch, (tuple, list)) else batch
+        metrics = body(state, batch, state.step_generator(lead.device), draws)
+        state.step += 1
+        return metrics
+
+    step.body = body
     return step

@@ -873,3 +873,207 @@ def test_remat_step_on_card_equals_the_step_without(dev, monkeypatch, impl,
     assert {k: n1[k] - n0[k] for k in n0} == {
         k: recomputed.get(k, 0) for k in n0}
     assert all(n0[k] for k in recomputed)
+
+
+def _graph_against_eager(dev, make, steps=4):
+    """`make()` -> (state, step, corpus) twice from the same seeds: `steps`
+    eager steps (make_train_step) on the first, the same steps through a
+    StepGraph on the second (warm-up, capture, steps - 1 replays), each
+    step's rows gathered from `corpus` by the same permutation. Asserts
+    every state tensor and metric equal bit for bit and returns the
+    graph's report."""
+    from cmx_torch.train.graph import StepGraph
+
+    states, rows = [], []
+    for kind in ("eager", "graph"):
+        state, step, corpus = make()
+        c = corpus if isinstance(corpus, tuple) else (corpus,)
+
+        def gather(idx, c=c):
+            out = tuple(t.index_select(0, idx) for t in c)
+            return out if len(out) > 1 else out[0]
+
+        g = torch.Generator().manual_seed(11)
+        idxs = [torch.randperm(c[0].shape[0], generator=g).to(dev)
+                for _ in range(steps)]
+        graph = StepGraph(step.body, gather, dev)
+        r = []
+        for idx in idxs:
+            if kind == "eager":
+                m = step(state, gather(idx))
+                r.append(torch.stack([m[k].float() for k in m]))
+            else:
+                r.append(graph.step(state, idx))
+        torch.cuda.synchronize()
+        states.append(state)
+        rows.append(torch.stack(r))
+    assert torch.equal(rows[0], rows[1])
+    assert bool(torch.isfinite(rows[1]).all())
+    for (n, t), u in zip(_state_tensors(states[0]).items(),
+                         _state_tensors(states[1]).values()):
+        assert torch.equal(t, u), n
+    rep = graph.report
+    assert (rep["eager_steps"], rep["replays"]) == (1, steps - 1)
+    return rep
+
+
+def _state_tensors(state):
+    out = {f"model/{n}": t for n, t in state.model.state_dict().items()}
+    for k, v in state.opt.state_dict().items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            out[f"opt/{k}/{i}"] = t
+    for k, v in (state.extra or {}).items():
+        if isinstance(v, torch.nn.Module):
+            out.update({f"extra/{k}/{n}": t
+                        for n, t in v.state_dict().items()})
+        else:
+            out[f"extra/{k}"] = v
+    return out
+
+
+GRAPH_WIDTHS = dict(widths=(8, 16, 32, 64))
+
+
+def _graph_spark(dev):
+    from cmx_torch.ssl.spark import SparKModel, make_spark_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    model = SparKModel(bottleneck_width=128, fused=True, **GRAPH_WIDTHS)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    task, _ = make_spark_task(model, input_size=64, pallas_loss=True)
+    tx = make_optimizer("lamb", 2e-4, 0.04, clip_norm=5.0,
+                        named_params=model.named_parameters())
+    imgs = torch.randn((4, 64, 64), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    return TrainState.create(model=model, tx=tx, seed=3), \
+        make_train_step(task, tx), imgs
+
+
+def _graph_moco(dev):
+    from cmx_torch.models.unet import UNetEncoderGAP
+    from cmx_torch.ssl.moco import make_moco_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    model = UNetEncoderGAP(bottleneck=128, **GRAPH_WIDTHS)
+    model.reset_parameters(torch.Generator().manual_seed(2))
+    model = model.to(dev)
+    task, _ = make_moco_task(model, num_negatives=8, view_size=32,
+                             crop_impl="pallas")
+    tx = make_optimizer("sgd", 0.03, 1e-4,
+                        named_params=model.named_parameters())
+    g = torch.Generator(device=dev).manual_seed(3)
+    extra = task.init_extra(g)
+    imgs = torch.randn((4, 48, 48), generator=g, device=dev) + 1.0
+    return TrainState.create(model=model, tx=tx, seed=7, extra=extra), \
+        make_train_step(task, tx), imgs
+
+
+def _graph_genesis(dev):
+    from cmx_torch.models.unet import UNet
+    from cmx_torch.ssl.reconstruction import make_genesis_task
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    model = UNet(out_classes=1, bottleneck=128, fused=True, **GRAPH_WIDTHS)
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    model = model.to(dev)
+    task, _ = make_genesis_task(model)
+    tx = make_optimizer("sgd", 1e-2, momentum=0.9,
+                        named_params=model.named_parameters())
+    imgs = torch.rand((4, 64, 64), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    return TrainState.create(model=model, tx=tx, seed=9), \
+        make_train_step(task, tx), imgs
+
+
+@pytest.mark.parametrize("case,calls", [
+    ("spark", {"flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
+               "spark_loss_pallas": 1, "spark_loss_bwd": 1}),
+    ("moco", {"crop_resize_pallas": 2}),
+    ("genesis", {"flat_conv3x3_mask_stats": 8, "flat_bwd_mega": 8})])
+def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
+    """A capture and 3 replays against 4 eager steps from the same state,
+    weights and batches (reduced widths, bf16, 64^2 or 48^2; FUSED_MIN_HW
+    patched to 32; cuDNN deterministic in both, as two eager runs need):
+    every parameter, BN buffer, optimizer state, `extra` tensor and metric
+    bit for bit; the capture called the kernel wrappers one step's worth
+    (SparK fused flat with K3: K1 4, K2 4, K3 1 + 1; MoCo: K4 2; Genesis:
+    K1 8, K2 8)."""
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    make = {"spark": _graph_spark, "moco": _graph_moco,
+            "genesis": _graph_genesis}[case]
+    rep = _graph_against_eager(dev, lambda: make(dev))
+    assert rep["capture_calls"] == calls
+
+
+def test_fit_through_the_graph_equals_the_eager_fit(dev, monkeypatch):
+    """harness.fit's _fit_scan counterpart (reduced widths, the fused bf16
+    UNet, FUSED_MIN_HW 32: K1/K2 at 64^2 and 32^2; 4 training images at
+    batch 2, 2 epochs: a warm-up, a capture and 3 replays) against the
+    same fit with every step eager: the train and validation logs and the
+    final (best) state bit for bit."""
+    from cmx_torch.models.unet import UNet
+    from cmx_torch.train import harness
+    from cmx_torch.train.graph import StepGraph
+
+    class EagerSteps(StepGraph):
+        def step(self, state, idx):
+            return self._eager(state, idx)
+
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(7, 64, 64)).astype(np.float32)
+    fg = rng.normal(size=(7, 64, 64)) > 1.0
+    y = np.stack([~fg, fg], -1).astype(np.float32)
+    model = UNet(out_classes=2, bottleneck=128, fused=True, **GRAPH_WIDTHS)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    graphs = []
+    res = {}
+    for kind in ("graph", "eager"):
+        if kind == "eager":
+            monkeypatch.setattr(harness, "StepGraph", EagerSteps)
+        n0 = ff.flat_bwd_mega.launches
+        res[kind] = harness.fit(x[:4], y[:4], x[4:], y[4:], lr=1e-3,
+                                epochs=2, batch=2, model=model, device=dev)
+        graphs.append(ff.flat_bwd_mega.launches - n0)
+    assert graphs == [8 + 8, 8 * 4]  # the warm-up and the capture; 4 steps
+    a, b = res["graph"], res["eager"]
+    assert a.train_logs == b.train_logs and a.valid_logs == b.valid_logs
+    for (n, t), u in zip(a.state.model.state_dict().items(),
+                         b.state.model.state_dict().values()):
+        assert torch.equal(t, u), n
+
+
+@pytest.mark.parametrize("hazard", ["item", "pageable copy"])
+def test_a_capture_that_meets_a_host_sync_raises(dev, hazard):
+    """A body that reads a value on the host (.item()) or copies from
+    pageable host memory runs eagerly as the warm-up and raises
+    GraphCaptureError at the capture, naming the line; nothing falls back
+    to eager steps."""
+    from cmx_torch.train.graph import GraphCaptureError, StepGraph
+    from cmx_torch.train.state import TrainState
+
+    corpus = torch.randn((4, 8), device=dev)
+
+    def body(state, batch, gen):
+        if hazard == "item":
+            scale = batch.sum().item()
+        else:
+            scale = torch.ones(()).to(dev)
+        return {"loss": batch.sum() * scale}
+
+    state = TrainState(step=0, model=None, opt=None)
+    graph = StepGraph(body, lambda idx: corpus.index_select(0, idx), dev)
+    idx = torch.arange(4, device=dev)
+    graph.step(state, idx)
+    with pytest.raises(GraphCaptureError, match="in body: scale = "):
+        graph.step(state, idx)
+    assert graph.graph is None and state.step == 1
