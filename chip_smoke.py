@@ -249,6 +249,29 @@ nothing past world size 1 on NCCL is claimed):
      cuDNN's deterministic algorithms: encoder.npz bit for bit, the same
      losses. `python3 chip_smoke.py --dp` builds the kernels and runs the
      DP phases alone.
+  FT-DP. the fine-tune harness and CLI under data parallel (`ftdp_phase`):
+     (a) the fine-tune CLI for one epoch at batch FT_CLI_BATCH on FT-CLI's
+     corpus and encoder.npz (model.fused_conv=True), in this process
+     without a group and under `torchrun --standalone --nproc_per_node 1`
+     (NCCL, world 1, the sub group of k = 1 the world; `--ft-cli-run` runs
+     the CLI's main there), both with cuDNN's deterministic algorithms and
+     through their graphs: test_<tag>.json and the grid pickle's logs bit
+     for bit, the launcher's fits replayed from graphs that captured their
+     all-reduces (the reports' `capture_collectives`), K1/K2 launches =
+     eager calls + capture calls x replays = FT1's per-step calls x the
+     steps; (b) two spawned gloo ranks on the one card (`--ftdp-rank R
+     --dp-out PATH`) run `harness.fit` of the fused bf16 UNet at
+     FTDP_BATCH (4 a rank, k = 2), FTDP_EPOCHS epochs over FTDP_IMAGES
+     images with injected permutations, against one process at FTDP_BATCH
+     from the same weights (its graph): every train loss within 2e-2
+     relative and validation dice_loss within 2e-2 absolute (it is
+     thresholded), the ranks' states bit for bit, K1 6 + K2 6
+     launches a step on each rank, each rank printing that gloo ran its
+     steps eagerly; then the gcd case at FTDP_GCD_BATCH (k = 1): rank 1
+     launches nothing, both return rank 0's state bit for bit. Both parts
+     timed (gloo goes through the host: the path runs, not NCCL's speed).
+     `python3 chip_smoke.py --ftdp` builds the kernels and runs FT-DP
+     alone (its own corpus, no encoder).
 The train step captured once as a CUDA graph (cmx_torch.train.graph, the
 counterpart of cmx's train.scan), with cuDNN's deterministic algorithms:
   GRAPH. for SparK at BATCH (flat fused, K3), FT1 at BATCH, MAE1 at
@@ -286,9 +309,10 @@ counting MAE1's, G1's, DV's and RM's 8-step runs too, K3's DV's and RM's;
 K3's row sums its forward and backward, which it also lists under "parts"),
 the card's name and power limit (nvidia-smi), and {"ok": true, "device":
 {...}} last. K1-K3's launches there count DP1's 8 steps and DP2's 4 on
-each rank too; each row's "launches_in_replays" counts its kernel's
-launches inside graph replays (GRAPH, the CLI phases and FT-CLI's fits:
-each graph's capture calls times its replays).
+each rank too, K1/K2's FT-DP (b)'s fits on both ranks; each row's
+"launches_in_replays" counts its kernel's launches inside graph replays
+(GRAPH, the CLI phases, FT-CLI's fits and FT-DP (a)'s, the launcher's
+included: each graph's capture calls times its replays).
 """
 
 from __future__ import annotations
@@ -3244,6 +3268,298 @@ def dp_cli_phase(work: Path, data_dir: str) -> dict:
 
 
 
+FTDP_BATCH = 8       # FT-DP (b): the global batch (4 a rank, k = 2)
+FTDP_GCD_BATCH = 3   # FT-DP (b): the gcd case's global batch (k = 1)
+FTDP_IMAGES = (8, 4)  # FT-DP (b): training and validation images
+FTDP_EPOCHS = 2      # FT-DP (b): epochs of the batch-8 fit
+# the fine-tune step's K1/K2 calls (down1, down2, up1; FT1 records them)
+FT_PER_STEP = {"flat_conv3x3_mask_stats": 6, "flat_bwd_mega": 6}
+
+
+def ftdp_inputs():
+    """FT-DP (b)'s data: 8 training and 4 validation images of CLI_SIZE^2
+    with one-hot masks (the synthetic corpus's generator, seed 0), and the
+    injected epoch permutations (numpy, seeds 100 + epoch)."""
+    import numpy as np
+
+    from cmx_torch.data.synthetic import make_batch
+
+    imgs, masks = make_batch(np.random.default_rng(0), sum(FTDP_IMAGES),
+                             CLI_SIZE)
+    n = FTDP_IMAGES[0]
+    perms = [np.random.default_rng(100 + ep).permutation(n)
+             for ep in range(FTDP_EPOCHS)]
+    return (imgs[:n], masks[:n], imgs[n:], masks[n:]), perms
+
+
+def ftdp_model():
+    """The fine-tune UNet as the CLI builds it with model.fused_conv=True
+    (full widths, bf16, weights from seed 0), on the host (fit copies it)."""
+    import torch
+
+    from cmx_torch.models.unet import UNet
+
+    model = UNet(out_classes=2, dtype=torch.bfloat16, fused=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def ftdp_fit(data, perms, batch: int, epochs: int) -> dict:
+    """`harness.fit` of FT-DP (b) in this process (a rank of the group, or
+    alone): its logs, the digest of the returned state, the K1/K2 launches
+    and its seconds."""
+    import hashlib
+
+    import torch
+
+    from cmx_torch.train.harness import fit
+
+    _zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fit(*data, lr=FT_LR, epochs=epochs, batch=batch, seed=42,
+              model=ftdp_model(), device="cuda", perms=perms[:epochs])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    h = hashlib.sha256()
+    st = res.state
+    for x in (list(st.model.state_dict().values())
+              + [y for v in st.opt.state_dict().values()
+                 for y in (v if isinstance(v, list) else [v])]):
+        h.update(x.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    out = {"train": res.train_logs, "valid": res.valid_logs,
+           "best_epoch": res.best_epoch, "step": st.step,
+           "digest": h.hexdigest(), "secs": secs,
+           "launches": {n: _launches()[n] for n in FLAT_KERNELS}}
+    del res, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def ftdp_rank_main(rank: int, out: str) -> int:
+    """One of FT-DP (b)'s ranks (`python3 chip_smoke.py --ftdp-rank R
+    --dp-out PATH`, the launcher's variables in the environment): a gloo
+    group on the one card; the fit at global batch FTDP_BATCH, then the gcd
+    case at FTDP_GCD_BATCH for one epoch; results to PATH.<rank>.json."""
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from cmx_torch import resolve_device
+    from cmx_torch.parallel import dist as pdist
+
+    resolve_device("cuda")
+    pdist.initialize_distributed("cuda", backend="gloo")
+    data, perms = ftdp_inputs()
+    res = {"fit": ftdp_fit(data, perms, FTDP_BATCH, FTDP_EPOCHS),
+           "gcd": ftdp_fit(data, perms, FTDP_GCD_BATCH, 1)}
+    Path(f"{out}.{rank}.json").write_text(json.dumps(res))
+    pdist.shutdown()
+    return 0
+
+
+def ft_cli_run(args: list) -> int:
+    """`python3 chip_smoke.py --ft-cli-run OUT ARGS` (FT-DP (a)'s launcher
+    run): cmx_torch.cli.finetune.main on ARGS with cuDNN's deterministic
+    algorithms; the kernels' wrapper calls, each graph's report and the
+    fine-tune set's size to OUT (JSON)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from cmx_torch.cli.finetune import main as finetune_main
+    from cmx_torch.train.graph import REPORTS
+
+    torch.backends.cudnn.deterministic = True
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = finetune_main(args[1:])
+    torch.cuda.synchronize()
+    Path(args[0]).write_text(json.dumps({
+        "calls": {n: fn.launches for n, fn in wrappers.items()},
+        "reports": REPORTS, "n_finetune": res["n_finetune"]}))
+    return 0
+
+
+def ftdp_cli(work: Path, encoder, data_dir: str, per_step: dict) -> dict:
+    """FT-DP (a): the fine-tune CLI for one epoch at batch FT_CLI_BATCH on
+    FT-CLI's corpus and encoder.npz, in this process without a group and
+    under `torchrun --standalone --nproc_per_node 1` (NCCL, world 1; the
+    launcher's variables set by hand where torchrun is missing), both with
+    cuDNN's deterministic algorithms and through their CUDA graphs."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from cmx_torch.cli.finetune import main as finetune_main
+    from cmx_torch.data.splits import KFold
+
+    def argv(out):
+        return (["--device", "cuda", "--lrs", str(FT_LR), "--epochs", "1",
+                 "--batches", str(FT_CLI_BATCH), "--out", str(work / out)]
+                + (["--pretrained", encoder] if encoder else [])
+                + ["data.synthetic=True", f"data.synthetic_n={CLI_IMAGES}",
+                   f"data.data_dir={data_dir}",
+                   f"data.image_size={CLI_SIZE}",
+                   f"data.ratio={FT_CLI_RATIO}", "model.fused_conv=True"])
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        one = finetune_main(argv("ftdp_one"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    one_s = time.perf_counter() - t0
+    tag = one["tag"]
+    del one
+    torch.cuda.empty_cache()
+    report = work / "ftdp_run.json"
+    script = [str(Path(__file__).resolve()), "--ft-cli-run", str(report),
+              *argv("ftdp_run")]
+    torchrun = shutil.which("torchrun")
+    if torchrun:
+        cmd = [torchrun, "--standalone", "--nproc_per_node", "1", *script]
+        env = {}
+    else:
+        cmd, env = [sys.executable, *script], _dp_env(1, 0, _free_port())
+    t0 = time.perf_counter()
+    _run_ranks("FT-DP-CLI", [cmd], [env], work)
+    run_s = time.perf_counter() - t0
+    run = json.loads(report.read_text())
+    files = {}
+    for d in ("ftdp_one", "ftdp_run"):
+        files[d] = (json.loads((work / d / f"test_{tag}.json").read_text()),
+                    pickle.loads((work / d / f"result_finetuning_unet_{tag}"
+                                  ".pkl").read_bytes()))
+    logs = [[(f["train_logs"], f["valid_logs"], f["best_epoch"])
+             for r in files[d][1] for f in r["folds"]] for d in files]
+    same = (files["ftdp_one"][0] == files["ftdp_run"][0]
+            and logs[0] == logs[1])
+    # launches: eager calls + capture calls x replays (graph_launches)
+    launches = dict(run["calls"])
+    for rep in run["reports"]:
+        for n, c in rep["capture_calls"].items():
+            launches[n] += c * (rep["replays"] - 1)
+    n_ft = run["n_finetune"]
+    folds = [len(tr) for tr, _ in KFold(3, random_state=42).split(
+        range(n_ft))]
+    steps = sum(-(-n // FT_CLI_BATCH) for n in folds + [n_ft])
+    expect = {n: per_step.get(n, 0) * steps for n in launches}
+    captured = [rep["capture_collectives"] for rep in run["reports"]]
+    log = (work / "FT-DP-CLI.0.log").read_text()
+    group = re.search(r"process group: (\w+) rank (\d+) of (\d+)", log)
+    replayed = re.findall(r"fit: (\d+) steps replayed from one CUDA graph",
+                          log)
+    how = ("torchrun --nproc_per_node 1" if torchrun
+           else "the launcher's variables set by hand")
+    print(f"FT-DP (a): the fine-tune CLI under {how} "
+          f"({group.group(0) if group else 'no group line'}), one epoch at "
+          f"batch {FT_CLI_BATCH}: test_{tag}.json and the grid's logs bit "
+          f"for bit the run without a group: {same}; test metrics "
+          f"{files['ftdp_run'][0]['test_metrics']}; {len(replayed)} fits "
+          f"replayed from their graphs ({replayed} replays), collectives "
+          f"captured in each graph {captured}; launches (eager calls + "
+          f"capture calls x replays) "
+          f"{ {n: launches[n] for n in FLAT_KERNELS} } (expected "
+          f"{ {n: expect[n] for n in FLAT_KERNELS} }, {steps} training "
+          f"steps); without a group {one_s:.1f} s, under the launcher "
+          f"{run_s:.1f} s (its start-up included)", flush=True)
+    if not same:
+        fail("FT-DP (a): the launcher's CLI run is not the run without a "
+             "group")
+    if not group or group.group(1) != "nccl" or group.group(3) != "1":
+        fail("FT-DP (a): the launcher's run made no NCCL group of one")
+    if (len(replayed) != len(folds) + 1 or len(captured) != len(replayed)
+            or any(c.get("grad_all_reduce") != 1 or not c.get("all_reduce")
+                   for c in captured)):
+        fail("FT-DP (a): a fit replayed no graph, or a graph did not "
+             "capture its all-reduces")
+    if launches != expect:
+        fail("FT-DP (a): the launcher's K1/K2 launches are not the steps' "
+             "calls")
+    return {"same": same, "one_s": one_s, "run_s": run_s,
+            "replays": run["reports"]}
+
+
+def ftdp_phase(work: Path, encoder, data_dir: str, per_step: dict,
+               smi: str) -> dict:
+    """Phase FT-DP: the fine-tune harness and CLI under data parallel (see
+    the module docstring). Returns (b)'s ranks' launches and both parts'
+    numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    cli = ftdp_cli(work, encoder, data_dir, per_step)
+    data, perms = ftdp_inputs()
+    ref = ftdp_fit(data, perms, FTDP_BATCH, FTDP_EPOCHS)
+    out = work / "ftdp"
+    port = _free_port()
+    _run_ranks("FT-DP", [[sys.executable, str(Path(__file__).resolve()),
+                          "--ftdp-rank", str(r), "--dp-out", str(out)]
+                         for r in range(2)],
+               [_dp_env(2, r, port) for r in range(2)], work)
+    ranks = [json.loads(Path(f"{out}.{r}.json").read_text())
+             for r in range(2)]
+    eager = ["steps run eagerly" in (work / f"FT-DP.{r}.log").read_text()
+             for r in range(2)]
+    fits = [r["fit"] for r in ranks]
+    loss_err = max(abs(a - b) / abs(b) for f in fits
+                   for a, b in zip(f["train"]["loss"], ref["train"]["loss"]))
+    # dice_loss is thresholded: held in absolute terms, as the CPU tests'
+    # _assert_logs_close holds thresholded logs (a pixel at 0.5 flips)
+    dice_err = max(abs(a - b) for f in fits for a, b in zip(
+        f["valid"]["dice_loss"], ref["valid"]["dice_loss"]))
+    steps = FTDP_EPOCHS * -(-FTDP_IMAGES[0] // FTDP_BATCH)
+    gcd_steps = -(-FTDP_IMAGES[0] // FTDP_GCD_BATCH)
+    want = {n: c * steps for n, c in FT_PER_STEP.items()}
+    gcd = [r["gcd"] for r in ranks]
+    print(f"FT-DP (b): fit of the fused bf16 UNet ({CLI_SIZE}^2) on two "
+          f"gloo ranks of one card at global batch {FTDP_BATCH} (k = 2), "
+          f"{FTDP_EPOCHS} epochs over {FTDP_IMAGES[0]} + {FTDP_IMAGES[1]} "
+          f"images, against one process at {FTDP_BATCH} (its graph): train "
+          f"loss {[f['train']['loss'] for f in fits]} / "
+          f"{ref['train']['loss']} (largest relative difference "
+          f"{loss_err:.3e}), valid dice_loss "
+          f"{[f['valid']['dice_loss'] for f in fits]} / "
+          f"{ref['valid']['dice_loss']} (largest absolute difference "
+          f"{dice_err:.3e}); ranks' states bit "
+          f"for bit {fits[0]['digest'] == fits[1]['digest']}; launches "
+          f"{[f['launches'] for f in fits]} over {steps} steps (expected "
+          f"{want}); gloo's eager steps printed {eager}; fit seconds per "
+          f"rank {[round(f['secs'], 3) for f in fits]}, one process "
+          f"{ref['secs']:.3f} (gloo stages every collective through the "
+          f"host: the path runs, not its speed). gcd case at batch "
+          f"{FTDP_GCD_BATCH} (k = 1): launches rank 0 {gcd[0]['launches']}, "
+          f"rank 1 {gcd[1]['launches']}, steps {gcd[0]['step']} / "
+          f"{gcd[1]['step']}, states bit for bit "
+          f"{gcd[0]['digest'] == gcd[1]['digest']}; {smi}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if loss_err > 2e-2 or dice_err > 2e-2:
+        fail("FT-DP (b): two ranks do not equal one process within the "
+             "bf16 bands")
+    if fits[0]["digest"] != fits[1]["digest"] or any(
+            f["launches"] != want for f in fits):
+        fail("FT-DP (b): the ranks' states differ, or a rank did not launch "
+             "K1/K2 6 + 6 a step")
+    if not all(eager):
+        fail("FT-DP (b): a rank did not say that gloo ran its steps eagerly")
+    if (gcd[0]["digest"] != gcd[1]["digest"]
+            or not gcd[0]["step"] == gcd[1]["step"] == gcd_steps
+            or any(gcd[1]["launches"].values())
+            or gcd[0]["launches"] != {n: c * gcd_steps
+                                      for n, c in FT_PER_STEP.items()}):
+        fail("FT-DP (b): in the gcd case rank 1 stepped or the ranks differ")
+    del ref
+    torch.cuda.empty_cache()
+    launches = collections.Counter()
+    for r in ranks:
+        for part in ("fit", "gcd"):
+            launches.update(r[part]["launches"])
+    return {"cli": cli, "loss_err": loss_err, "dice_err": dice_err,
+            "secs": [f["secs"] for f in fits], "launches": dict(launches)}
+
+
 GRAPH_STEPS = 6  # GRAPH: N eager steps against warm-up, capture, N-1 replays
 
 
@@ -3474,6 +3790,14 @@ def main(argv=None) -> int:
     p.add_argument("--cli-run", nargs=argparse.REMAINDER, default=None,
                    help="(run by DP-CLI under torchrun) the pretrain CLI on "
                         "the remaining arguments")
+    p.add_argument("--ftdp", action="store_true",
+                   help="build the kernels, then run phase FT-DP alone")
+    p.add_argument("--ftdp-rank", type=int, default=None,
+                   help="(spawned by FT-DP) run its fits as this rank of the "
+                        "gloo group its environment describes")
+    p.add_argument("--ft-cli-run", nargs=argparse.REMAINDER, default=None,
+                   help="(run by FT-DP under torchrun) OUT, then the "
+                        "fine-tune CLI on the remaining arguments")
     args = p.parse_args(argv)
     import torch
 
@@ -3501,6 +3825,10 @@ def main(argv=None) -> int:
         return dp_rank_main(args.dp_rank, args.dp_out)
     if args.cli_run is not None:
         return dp_cli_run(args.cli_run)
+    if args.ftdp_rank is not None:
+        return ftdp_rank_main(args.ftdp_rank, args.dp_out)
+    if args.ft_cli_run is not None:
+        return ft_cli_run(args.ft_cli_run)
     if args.cm1_batch is not None:
         cm = cm_phase(args.cm1_batch, SPARK_STEPS)
         print(json.dumps({"cm1": {"batch": args.cm1_batch, **cm}}),
@@ -3516,12 +3844,15 @@ def main(argv=None) -> int:
         graph_phase()
         print(smi, flush=True)
         return 0
-    if args.dp or args.views:
+    if args.dp or args.views or args.ftdp:
         scratch = repo / "_scratch"
         scratch.mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=scratch) as work:
             if args.dp:
                 dp_phases(Path(work), None, None, None, smi)
+            elif args.ftdp:
+                ftdp_phase(Path(work), None, f"{work}/data", FT_PER_STEP,
+                           smi)
             else:
                 views_phases(Path(work), None, None)
         print(smi, flush=True)
@@ -3692,6 +4023,7 @@ def main(argv=None) -> int:
         rm_cli_phase(Path(work), data_dir, rm["mae"])
         ev = ev_phase(encoder, data_dir)
         dp = dp_phases(Path(work), data_dir, step_ms, flat_loss, smi)
+        ftdp = ftdp_phase(Path(work), encoder, data_dir, ft_per_step, smi)
         rm_launches = collections.Counter()
         for r in rm.values():
             for c in ("plain", "remat"):
@@ -3709,10 +4041,11 @@ def main(argv=None) -> int:
         print(f"  {r['kernel']} {r['name']}: {r['launches']} launch(es), "
               f"{r['bytes'] / 1e6:.1f} MB, {r['flops'] / 1e9:.2f} GFLOP, "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    # K1-K3: the SparK run's launches, MAE1's, G1's, DV's, RM's, and DP1's
-    # and both DP2 ranks'
+    # K1-K3: the SparK run's launches, MAE1's, G1's, DV's, RM's, DP1's,
+    # both DP2 ranks' and both FT-DP (b) ranks'
     dp_launches = collections.Counter(dp["dp1"]["launches"])
     dp_launches.update(dp["dp2"]["launches"])
+    dp_launches.update(ftdp["launches"])
     launches = {**{n: spark_launches[n] + mae_launches.get(n, 0)
                    + g_launches.get(n, 0) + dv_launches.get(n, 0)
                    + rm_launches.get(n, 0) + dp_launches.get(n, 0)
@@ -3727,7 +4060,7 @@ def main(argv=None) -> int:
     from cmx_torch.train.graph import REPORTS
 
     replayed = collections.Counter()
-    for rep in REPORTS:
+    for rep in REPORTS + ftdp["cli"]["replays"]:  # FT-DP's launcher's too
         for n, c in rep["capture_calls"].items():
             replayed[n] += c * rep["replays"]
     rows = []
@@ -3796,7 +4129,8 @@ def main(argv=None) -> int:
           f"batch {MOCO_BATCH} for K4, K5 once at down1's epilogue; "
           f"launches: {SPARK_STEPS} SparK steps of each impl, K1-K3 also "
           f"MAE1's, G1's, DV's, RM's and DP1's {SPARK_STEPS} steps each and "
-          f"DP2's {DP2_STEPS} on each of its two ranks / "
+          f"DP2's {DP2_STEPS} on each of its two ranks, K1/K2 FT-DP (b)'s "
+          f"fits on its two ranks / "
           f"{MOCO_STEPS} MoCo steps and VIEWS' {vp['views']['k4']} checked "
           f"pallas views / the K5 phase); SparK step_ms flat="
           f"{step_ms:.3f} nhwc={nhwc_ms:.3f}; MF moco_fast step_ms="
@@ -3805,9 +4139,13 @@ def main(argv=None) -> int:
           f"(NCCL, world 1) step_ms={dp['dp1']['step_ms']:.3f}, DP2 (gloo, 2 "
           f"ranks on one card) step_ms per rank "
           f"{', '.join(f'{t:.3f}' for t in dp['dp2']['step_ms'])}; "
+          f"FT-DP (a) the CLI {ftdp['cli']['one_s']:.1f} s without a group, "
+          f"{ftdp['cli']['run_s']:.1f} s under torchrun (NCCL, world 1), "
+          f"(b) fit seconds per gloo rank "
+          f"{', '.join(f'{t:.3f}' for t in ftdp['secs'])}; "
           f"launches_in_replays: each graph's capture calls times its "
           f"replays (GRAPH's {len(graph)} cases, the CLI phases, FT-CLI's "
-          f"fits); GRAPH graph/eager step_ms "
+          f"and FT-DP (a)'s fits); GRAPH graph/eager step_ms "
           + ", ".join(f"{r['label']} {r['ratio']:.3f}" for r in graph),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -16,6 +16,16 @@ where <tag> is the encoder file's name, or its directory's for the generic
 names encoder / model, or "None". Everything runs on the card unless
 `--device cpu` is given; `main` returns a summary dict besides printing it.
 cmx's JAX compile cache has no counterpart.
+
+On N cards (cmx's devices), one process a card:
+
+    torchrun --standalone --nproc_per_node N -m cmx_torch.cli.finetune ...
+
+makes an NCCL group from the launcher's variables (gloo with `--device
+cpu`), each rank on cuda:LOCAL_RANK. Rank 0 writes the synthetic corpus
+before any rank reads it, the initial weights are rank 0's, each fit trains
+on k = gcd(batch, N) ranks (`harness.fit`), and rank 0 alone writes the
+pickle and the json. Without WORLD_SIZE nothing of this runs.
 """
 
 from __future__ import annotations
@@ -62,7 +72,27 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
 
+    from cmx_torch.parallel.dist import initialize_distributed, shutdown
+
     dev = resolve_device(args.device)
+    made_group = initialize_distributed(dev)
+    try:
+        return _run(args, dev)
+    finally:
+        if made_group:
+            shutdown()
+
+
+def _run(args: argparse.Namespace, dev: torch.device) -> Dict[str, Any]:
+    from cmx_torch.parallel import mesh
+    from cmx_torch.parallel.dist import local_rank, on_main, process_info
+
+    if mesh.active():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local_rank())
+        rank, world = process_info()
+        print(f"process group: {mesh.backend()} rank {rank} "
+              f"of {world} on {dev}")
     cfg = Config()
     apply_overrides(cfg, args.overrides)
     if args.corpus_seed is not None:
@@ -80,6 +110,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     from cmx_torch.train.harness import evaluate, fit, grid_search, upload_set
     from cmx_torch.train.supervised import make_eval_fn
 
+    if mesh.active():  # rank 0 writes a synthetic corpus before any reads
+        on_main(resolve_corpus, cfg.data)
     xs, ys = list_corpus(resolve_corpus(cfg.data))
     splits = make_splits(xs, ys, ratio=cfg.data.ratio)
     ft_imgs, ft_masks = load_corpus(splits.finetune_x, splits.finetune_y,
@@ -99,6 +131,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
 
         load_encoder(args.pretrained, model)
         print(f"loaded pretrained encoder from {args.pretrained}")
+    mesh.replicate(model)  # every rank starts from rank 0's weights
 
     os.makedirs(args.out, exist_ok=True)
     tag = result_tag(args.pretrained)
@@ -120,15 +153,20 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     print("test:", {k: round(v, 4) for k, v in test_metrics.items()})
     test_path = os.path.join(args.out, f"test_{tag}.json")
     dice = 1.0 - test_metrics["dice_loss"]
-    with open(test_path, "w") as f:
-        json.dump({"hypers": {"lr": lr, "batch": bs_, "epochs": eps},
-                   "test_metrics": test_metrics, "dice": dice}, f, indent=2)
+    on_main(_write_json, test_path, {
+        "hypers": {"lr": lr, "batch": bs_, "epochs": eps},
+        "test_metrics": test_metrics, "dice": dice})
     return {"state": res.state, "model": model, "tag": tag,
             "hypers": {"lr": lr, "batch": bs_, "epochs": eps},
             "grid": results, "final": res, "test_metrics": test_metrics,
             "dice": dice, "n_finetune": int(len(ft_imgs)),
             "n_test": int(len(te_imgs)), "results_path": results_path,
             "test_path": test_path}
+
+
+def _write_json(path: str, obj: Any) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
 
 
 if __name__ == "__main__":

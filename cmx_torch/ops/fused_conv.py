@@ -494,10 +494,16 @@ class FusedDoubleConv(torch.autograd.Function):
         ctx.save_for_backward(x, m, w0, w1, g0, be0, g1, be1, y0, y1,
                               mean0, var0, mean1, var1, nact)
         ctx.mark_non_differentiable(mean0, var0, mean1, var1)
+        ctx.scope = mesh.scope()  # the backward's sums run in this group
         return out, mean0, var0, mean1, var1
 
     @staticmethod
     def backward(ctx, g_out, *_stat_cts):
+        with mesh.in_scope(ctx.scope):
+            return FusedDoubleConv._backward(ctx, g_out)
+
+    @staticmethod
+    def _backward(ctx, g_out):
         """cmx's _fused_bwd. Per stage, with xhat = (y-mean)*r:
         dz = g*m*[gate], dgamma = sum(dz*xhat), dbeta = sum(dz),
         dy = m*gamma*r*(dz - (dbeta + xhat*dgamma)/nact); K8 gates on

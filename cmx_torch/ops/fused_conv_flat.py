@@ -248,10 +248,16 @@ class FlatDoubleConv(torch.autograd.Function):
         ctx.hw = (H, W)
         ctx.in_dtype = in_dtype
         ctx.mark_non_differentiable(mean0, var0, mean1, var1)
+        ctx.scope = mesh.scope()  # the backward's sums run in this group
         return out, mean0, var0, mean1, var1
 
     @staticmethod
     def backward(ctx, g_out, *_stat_cts):
+        with mesh.in_scope(ctx.scope):
+            return FlatDoubleConv._backward(ctx, g_out)
+
+    @staticmethod
+    def _backward(ctx, g_out):
         (xf, mflat, w0, w1, g0, be0, g1, be1, y0, y1,
          mean0, var0, mean1, var1, nact) = ctx.saved_tensors
         H, W = ctx.hw

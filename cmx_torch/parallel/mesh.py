@@ -28,29 +28,117 @@ collective ("all_reduce", "grad_all_reduce", "all_gather", "broadcast",
 "barrier", each also as "<op>_bytes"); tests and chip_smoke.py read it, as
 they read the kernels' `.launches`. Shards are equal: every rank holds B/W
 rows.
+
+Scopes. Every collective, `info()`, `world_size()`, `global_batch()` and
+`rank_slice()` read the current scope, the world group unless one of two
+`with` blocks says otherwise:
+  * `sub_group(k)`: the first k ranks (cmx's `make_mesh(jax.devices()[:k])`,
+    the fine-tune's gcd submesh). Every rank of the world enters it: the
+    group is made once per k by `dist.new_group`, a call every rank makes
+    in the same order. It yields whether this rank is a member; inside it a
+    rank that is not one may run no collective (they raise);
+  * `local()`: every collective a no-op, this process alone (work that cmx
+    replicates, as the fine-tune's validation).
+Without a group both change nothing. A differentiable sum's backward runs
+in the scope its forward ran in (`scope()` / `in_scope()`): autograd may
+call it after the `with` block has exited.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Iterable, List, Sequence
+import contextlib
+from typing import Any, Iterable, Iterator, List, Sequence
 
 import torch
 import torch.distributed as dist
 
 counts: collections.Counter = collections.Counter()
 
+# The scope stack (module state: autograd's device threads must see it).
+# An entry is a sub group's ProcessGroup, _LOCAL or _OUTSIDE; empty is
+# the world group.
+_LOCAL = "local"      # every collective a no-op
+_OUTSIDE = "outside"  # a rank outside the sub group: collectives raise
+_scopes: List[Any] = []
+_groups: dict = {}    # k -> the group of the first k ranks, of _groups_of
+_groups_of: List[Any] = [None]  # the world group those groups came from
 
-def active() -> bool:
-    """Whether a process group exists."""
+
+def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def scope() -> Any:
+    """The current scope (None: the world group); `in_scope` re-enters it."""
+    return _scopes[-1] if _scopes else None
+
+
+@contextlib.contextmanager
+def in_scope(s: Any) -> Iterator[None]:
+    """Run the block in scope `s` (a value `scope()` returned)."""
+    _scopes.append(s)
+    try:
+        yield
+    finally:
+        _scopes.pop()
+
+
+def _group() -> Any:
+    """The current scope's group (None: the world); raises on a rank
+    outside the current sub group."""
+    s = scope()
+    if s is _OUTSIDE:
+        raise RuntimeError(f"rank {dist.get_rank()} is outside the current "
+                           "sub group and may run no collective in it")
+    return s
+
+
+@contextlib.contextmanager
+def local() -> Iterator[None]:
+    """This process alone: every collective in the block is a no-op."""
+    with in_scope(_LOCAL):
+        yield
+
+
+@contextlib.contextmanager
+def sub_group(k: int) -> Iterator[bool]:
+    """The first `k` ranks of the world as the block's group; yields
+    whether this rank is one of them. Every rank of the world must enter
+    it (making the group is a collective call). k equal to the world size
+    is the world group; without a process group it changes nothing."""
+    if not _initialized():
+        yield True
+        return
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if not 1 <= k <= world:
+        raise ValueError(f"a sub group of {k} ranks in a world of {world}")
+    if k == world:
+        group = None
+    else:
+        if _groups_of[0] is not dist.group.WORLD:  # a new world: new groups
+            _groups.clear()
+            _groups_of[0] = dist.group.WORLD
+        if k not in _groups:
+            _groups[k] = dist.new_group(ranks=list(range(k)))
+        group = _groups[k]
+    with in_scope(group if rank < k else _OUTSIDE):
+        yield rank < k
+
+
+def active() -> bool:
+    """Whether collectives run: a process group exists and the scope is not
+    `local()`."""
+    return _initialized() and _group() is not _LOCAL
+
+
 def info() -> tuple:
-    """(rank, world size): (0, 1) without a process group."""
+    """(rank, world size) in the current scope: (0, 1) without a process
+    group or under `local()`."""
     if not active():
         return 0, 1
-    return dist.get_rank(), dist.get_world_size()
+    g = _group()
+    return dist.get_rank(g), dist.get_world_size(g)
 
 
 def world_size() -> int:
@@ -58,8 +146,8 @@ def world_size() -> int:
 
 
 def backend() -> str:
-    """The group's backend ("nccl", "gloo"), or "none"."""
-    return dist.get_backend() if active() else "none"
+    """The current scope's backend ("nccl", "gloo"), or "none"."""
+    return dist.get_backend(_group()) if active() else "none"
 
 
 def reset_counts() -> None:
@@ -76,7 +164,7 @@ def all_reduce_sum(t: torch.Tensor, op: str = "all_reduce") -> torch.Tensor:
     """Sum `t` over the ranks, in place (no autograd); returns `t`."""
     if active():
         _count(op, [t])
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=_group())
     return t
 
 
@@ -131,11 +219,13 @@ class _SharedSum(torch.autograd.Function):
 class _SyncSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
+        ctx.scope = scope()
         return all_reduce_sum(x.detach().clone())
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum(g.clone())
+        with in_scope(ctx.scope):  # the forward's group, not the caller's
+            return all_reduce_sum(g.clone())
 
 
 def all_reduce_shared(x: torch.Tensor) -> torch.Tensor:
@@ -174,7 +264,7 @@ def all_gather_batch(x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     buf[rank * b:(rank + 1) * b] = x.detach()
     _count("all_gather", [buf])
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=_group())
     return buf
 
 
@@ -196,15 +286,26 @@ def replicate(*objs: Any) -> None:
     parameters and buffers, tensors, dicts and lists of them)."""
     if not active():
         return
+    g = _group()
     for t in _tensors_of(objs):
         _count("broadcast", [t])
-        dist.broadcast(t, 0)
+        dist.broadcast(t, 0, group=g)  # world rank 0 is in every scope's
+
+
+def broadcast_object(obj: Any) -> Any:
+    """Rank 0's `obj` (picklable: logs, counters) on every rank."""
+    if not active():
+        return obj
+    box = [obj]
+    _count("broadcast", [])
+    dist.broadcast_object_list(box, 0, group=_group())
+    return box[0]
 
 
 def barrier() -> None:
     if active():
         _count("barrier", [])
-        dist.barrier()
+        dist.barrier(group=_group())
 
 
 def global_batch(b: int) -> int:

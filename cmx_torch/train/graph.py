@@ -15,7 +15,9 @@ a step:
   * every later step copies its indices into the static buffer, re-seeds
     the run's generator from (seed, step) and replays the graph; its
     metrics are copied out of the graph's tensors on the device.
-On the CPU every step runs the same gather and body eagerly.
+On the CPU every step runs the same gather and body eagerly, and so on a
+card under a gloo group (`mesh.backend()`): gloo stages every collective
+through the host, which no graph can capture.
 
 The graph holds the addresses of everything the step reads and writes:
 parameters, optimizer state, BN buffers, the task's `extra`, the gathered
@@ -38,7 +40,8 @@ under torch.cuda.set_sync_debug_mode("error"), so a host synchronisation
 Launch accounting: a kernel wrapper counts its launches when it is called,
 so its count sees the eager steps and the capture, never a replay. Each
 graph's report (`StepGraph.report`, also appended to `REPORTS`) holds the
-wrapper calls made during its capture (`capture_calls`), its `replays`,
+wrapper calls made during its capture (`capture_calls`), the collectives
+it captured (`capture_collectives`, from `mesh.counts`), its `replays`,
 its `eager_steps`, `capture_s` and the bytes its pool holds: a kernel ran
 eager calls + capture_calls x replays times.
 """
@@ -52,6 +55,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from cmx_torch.parallel import mesh
 from cmx_torch.train.state import TrainState
 
 REPORTS: List[Dict[str, Any]] = []  # every captured graph's report
@@ -102,6 +106,10 @@ class StepGraph:
                  label: str = "step"):
         self.body, self.gather = body, gather
         self.device = torch.device(device)
+        # whether steps after the first replay a graph: on a card, unless
+        # the scope's group is gloo's
+        self.captures = (self.device.type == "cuda"
+                         and mesh.backend() != "gloo")
         self.gen = torch.Generator(device=self.device)
         self.graph = None
         self.static_idx = None
@@ -109,7 +117,8 @@ class StepGraph:
         self.names: List[str] = []
         self.report: Dict[str, Any] = {
             "label": label, "eager_steps": 0, "replays": 0,
-            "capture_calls": {}, "capture_s": None, "pool_bytes": None}
+            "capture_calls": {}, "capture_collectives": {},
+            "capture_s": None, "pool_bytes": None}
 
     def _row(self, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
         if not self.names:
@@ -131,7 +140,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.gen)
         self.gen.manual_seed(state.step_seed())
-        before = launch_counts()
+        before, collectives = launch_counts(), dict(mesh.counts)
         mode = torch.cuda.get_sync_debug_mode()
         t0 = time.perf_counter()
         try:
@@ -151,13 +160,16 @@ class StepGraph:
         after = launch_counts()
         self.report["capture_calls"] = {
             k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.report["capture_collectives"] = {
+            k: v - collectives.get(k, 0) for k, v in mesh.counts.items()
+            if v != collectives.get(k, 0)}
         self.report["pool_bytes"] = free0 - torch.cuda.mem_get_info(
             self.device)[0]
         self.graph = graph
         REPORTS.append(self.report)
 
     def step(self, state: TrainState, idx: torch.Tensor) -> torch.Tensor:
-        if self.device.type != "cuda" or not self.report["eager_steps"]:
+        if not self.captures or not self.report["eager_steps"]:
             return self._eager(state, idx)
         if self.graph is None:
             self._capture(state, idx)

@@ -40,12 +40,22 @@ validation dice_loss improves (strict <), and the step metrics reach the
 host once, at the end. Where no epoch's dice_loss is below inf (all NaN),
 the state ends where it started, as in cmx's _fit_scan (cmx's host loop
 keeps the last one).
+
+Data parallel: cmx's fit is data parallel inside one process, over its
+devices; the port maps a device to a rank (a process, one per card,
+cmx_torch.parallel.mesh). The scan path trains on the ranks of cmx's gcd
+submesh, `mesh.sub_group(gcd(batch, W))`, the host loop on all W ranks
+(chunks padded to W rows as cmx's); the collectives of the step (BN and
+K1/K2 sums, the loss's sums, the gradients) run in that group, and
+validation and `evaluate` in `mesh.local()`. The pickle of `grid_search` is
+rank 0's to write.
 """
 
 from __future__ import annotations
 
 import copy
 import itertools
+import math
 import pickle
 import time
 from dataclasses import dataclass
@@ -58,6 +68,8 @@ from cmx_torch import resolve_device
 from cmx_torch.eval import host_metrics
 from cmx_torch.eval.metrics import segmentation_metrics
 from cmx_torch.models.unet import UNet
+from cmx_torch.parallel import mesh
+from cmx_torch.parallel.dist import on_main
 from cmx_torch.train.optim import Adam
 from cmx_torch.train.state import TrainState
 from cmx_torch.train.graph import StepGraph
@@ -83,16 +95,18 @@ def find_best_epochs(valid_logs: Dict[str, List[float]]) -> int:
     return int(np.argmin(total))
 
 
-def _batches(n: int, batch: int, rng: np.random.Generator):
-    """cmx's host-loop batches: a permutation of n in chunks of `batch`, the
-    last one wrap-padded (tiled, as the set may be smaller than the
-    batch)."""
+def _batches(n: int, batch: int, rng: np.random.Generator,
+             pad_multiple: int = 1):
+    """cmx's host-loop batches: a permutation of n in chunks of `batch`,
+    each padded to max(batch, pad_multiple) rows by wrapping (tiled, as the
+    set may be smaller than the batch; cmx pads to its device count)."""
     idx = rng.permutation(n)
+    need = max(batch, pad_multiple)
     for i in range(0, n, batch):
         chunk = idx[i: i + batch]
-        if len(chunk) < batch:
-            reps = (batch - len(chunk) + n - 1) // n + 1
-            chunk = np.concatenate([chunk, np.tile(idx, reps)])[:batch]
+        if len(chunk) < need:
+            reps = (need - len(chunk) + n - 1) // n + 1
+            chunk = np.concatenate([chunk, np.tile(idx, reps)])[:need]
         yield chunk
 
 
@@ -132,7 +146,14 @@ def evaluate(eval_fn, imgs: torch.Tensor, masks: torch.Tensor,
     of its first image, as cmx pads it, and scored on its real rows only):
     the device metrics (soft-clDice included) and, with `host`, hausdorff
     and radius_arteries on the host. Means weighted by the real rows; the
-    device metrics reach the host in one transfer."""
+    device metrics reach the host in one transfer. Under data parallel each
+    rank evaluates the whole set by itself (`mesh.local()`), as cmx
+    evaluates replicated arrays: the metrics' sums are not all-reduced."""
+    with mesh.local():
+        return _evaluate(eval_fn, imgs, masks, batch, host)
+
+
+def _evaluate(eval_fn, imgs, masks, batch, host):
     n = imgs.shape[0]
     pending = []  # (real rows, device metrics, host metrics)
     for i in range(0, n, batch):
@@ -195,7 +216,15 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
     validation metrics, the best state by validation dice_loss. The host
     loop's batches and evaluation when host_metrics_every > 0 (or there is
     no validation set), else those of cmx's _fit_scan, whose epoch
-    permutations `perms` injects (tests inject cmx's). Runs on `device`."""
+    permutations `perms` injects (tests inject cmx's). Runs on `device`.
+
+    Under data parallel (W ranks, cmx's devices) `batch` is the global
+    batch and every rank draws the same chunks. The scan path trains on
+    the first k = gcd(batch, W) ranks (cmx's gcd submesh), each on its
+    batch/k rows of every chunk; the host loop on all W, its chunks padded
+    to max(batch, W) rows as cmx pads them. Validation runs on each
+    training rank by itself; the best epoch is rank 0's decision. At the
+    end every rank takes rank 0's state and logs: all return the same."""
     t0 = time.time()
     dev = resolve_device(device)
     if model is None:
@@ -214,30 +243,65 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
     xva, yva = upload_set(imgs_valid, masks_valid, dev)
     n = xtr.shape[0]
     scan = not host_metrics_every and xva.shape[0] > 0
+    world = mesh.world_size()
+    if not scan and max(batch, world) % world:
+        raise ValueError(f"the host loop's batch of {batch} does not split "
+                         f"over {world} ranks")
+    k = math.gcd(batch, world) if scan else world
+
+    live = list(net.state_dict().values())
+    tms, vms = [], []
+    with mesh.sub_group(k) as member:
+        if member:
+            _train_epochs(state, task, tx, eval_fn, (xtr, ytr), (xva, yva),
+                          live, tms, vms, scan=scan, epochs=epochs,
+                          batch=batch, seed=seed, perms=perms,
+                          host_metrics_every=host_metrics_every)
+    train_logs = _columns(_to_host(tms))
+    valid_logs = _columns(_to_host(vms) if scan else vms)
+    # rank 0's state and logs on every rank (the ranks outside the
+    # sub group trained nothing)
+    mesh.replicate(net, tx.state_dict())
+    train_logs, valid_logs, state.step, runtime = mesh.broadcast_object(
+        (train_logs, valid_logs, state.step, time.time() - t0))
+    best_ep = find_best_epochs(valid_logs)
+    if verbose:
+        print(f"fit {epochs} epochs: train {train_logs['loss'][-1]:.4f} "
+              f"best valid dice_loss {min(valid_logs['dice_loss']):.4f}")
+    return FitResult(train_logs, valid_logs, best_ep, runtime, state)
+
+
+def _train_epochs(state, task, tx, eval_fn, train, valid, live, tms, vms, *,
+                  scan, epochs, batch, seed, perms, host_metrics_every):
+    """`fit`'s epochs on a rank of the current group: each epoch's step
+    metrics appended to `tms` and validation metrics to `vms`; the live
+    tensors `live` end as the best epoch's."""
+    (xtr, ytr), (xva, yva) = train, valid
+    dev, n = xtr.device, xtr.shape[0]
+    rank, ranks = mesh.info()
+    rows = slice(rank * batch // ranks, (rank + 1) * batch // ranks)
     host_rng = np.random.default_rng(seed)
-    if scan:  # one graph for the fit: every chunk has `batch` rows
+    if scan:  # one graph for the fit: every chunk has batch / k rows
         graph = StepGraph(
             make_train_body(task, tx),
             lambda c: (xtr.index_select(0, c), ytr.index_select(0, c)),
             dev, label="fit")
     else:
         step = make_train_step(task, tx)
-
-    live = list(net.state_dict().values())
     best = [t.detach().clone() for t in live]
     best_metric = torch.tensor(float("inf"), device=dev)
-    tms, vms = [], []
     for ep in range(epochs):
         if scan:
             chunks = _epoch_chunks(n, batch, seed, ep, dev,
                                    None if perms is None else perms[ep])
-            tms.append({k: v.mean()
-                        for k, v in graph.run(state, chunks).items()})
-            vm = segmentation_metrics(eval_fn(xva), yva)
+            tms.append({k: v.mean() for k, v in
+                        graph.run(state, chunks[:, rows]).items()})
+            with mesh.local():  # every rank the whole set, as cmx's xva
+                vm = segmentation_metrics(eval_fn(xva), yva)
         else:
             ms = [step(state, (xtr[c], ytr[c])) for c in (
-                torch.from_numpy(c).to(dev) for c in _batches(n, batch,
-                                                               host_rng))]
+                mesh.rank_slice(torch.from_numpy(c)).to(dev)
+                for c in _batches(n, batch, host_rng, pad_multiple=ranks))]
             tms.append({k: torch.stack([m[k].float() for m in ms]).mean()
                         for k in ms[0]})
             vm = evaluate(eval_fn, xva, yva, batch=batch,
@@ -246,6 +310,9 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
         vms.append(vm)
         with torch.no_grad():
             dice = torch.as_tensor(vm["dice_loss"], device=dev)
+            # rank 0's value decides on every rank: two cards' cuDNN picks
+            # may differ in the last bit
+            mesh.replicate(dice)
             better = dice < best_metric
             best_metric = torch.where(better, dice, best_metric)
             for b, t in zip(best, live):
@@ -253,16 +320,13 @@ def fit(imgs_train: np.ndarray, masks_train: np.ndarray,
     with torch.no_grad():
         for b, t in zip(best, live):
             t.copy_(b)
-    train_logs = _columns(_to_host(tms))
-    valid_logs = _columns(_to_host(vms) if scan else vms)
-    best_ep = find_best_epochs(valid_logs)
     if scan and graph.report["capture_s"] is not None:
         print(f"fit: {graph.report['replays']} steps replayed from one CUDA "
               f"graph captured in {graph.report['capture_s']:.3f} s")
-    if verbose:
-        print(f"fit {epochs} epochs: train {train_logs['loss'][-1]:.4f} "
-              f"best valid dice_loss {min(valid_logs['dice_loss']):.4f}")
-    return FitResult(train_logs, valid_logs, best_ep, time.time() - t0, state)
+    elif scan and mesh.backend() == "gloo":
+        print(f"fit: {graph.report['eager_steps']} steps run eagerly on "
+              f"{dev} (gloo stages every collective through the host: no "
+              "CUDA graph)")
 
 
 def grid_search(imgs: np.ndarray, masks: np.ndarray, *,
@@ -276,7 +340,8 @@ def grid_search(imgs: np.ndarray, masks: np.ndarray, *,
     (main_finetuning, train.py:311-378): each point's score is the mean over
     the folds of validation dice_loss + CE at the fold's best epoch.
     Returns (best_lr, best_batch, best_epochs, all_results); the results
-    are pickled to `results_path` when given."""
+    are pickled to `results_path` when given, by rank 0 alone under data
+    parallel (every rank returns the same)."""
     from cmx_torch.data.splits import KFold
 
     results = []
@@ -301,7 +366,11 @@ def grid_search(imgs: np.ndarray, masks: np.ndarray, *,
         if score < best[0]:
             best = (score, (lr, bs, eps))
     if results_path:
-        with open(results_path, "wb") as f:
-            pickle.dump(results, f)
+        on_main(_dump, results, results_path)
     lr, bs, eps = best[1]
     return lr, bs, eps, results
+
+
+def _dump(obj: Any, path: str) -> None:
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)

@@ -122,3 +122,29 @@ def make_train_step(task: Task, tx) -> Callable:
 
     step.body = body
     return step
+
+
+class Trainer:
+    """Thin host-side wrapper (cmx/train/trainer.py's `Trainer`): the step
+    of `task` and `tx`, fed a global batch. Under data parallel
+    `prepare_state` makes every rank's state rank 0's, and `run_step` runs
+    the step on this rank's rows of the global batch (`mesh.rank_slice`:
+    what cmx's shard_batch lays on a device), so every rank returns the
+    global batch's metrics. Epoch semantics live in the harnesses."""
+
+    def __init__(self, task: Task, tx):
+        self.task = task
+        self.tx = tx
+        self.step_fn = make_train_step(task, tx)
+
+    def prepare_state(self, state: TrainState) -> TrainState:
+        mesh.replicate(state.model, state.opt.state_dict(), state.extra)
+        return state
+
+    def run_step(self, state: TrainState, batch: Any,
+                 draws: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        rows = (tuple(mesh.rank_slice(x) for x in batch)
+                if isinstance(batch, (tuple, list)) else
+                mesh.rank_slice(batch))
+        return self.step_fn(state, rows, draws)

@@ -230,6 +230,7 @@ def test_split_step_equals_the_unsplit_step(task, monkeypatch):
     _assert_states_equal(a, b)
     assert graph.report == {"label": "step", "eager_steps": 2,
                             "replays": 0, "capture_calls": {},
+                            "capture_collectives": {},
                             "capture_s": None, "pool_bytes": None}
 
 
