@@ -36,6 +36,19 @@ builds it:
      the port), timed and profiled the same way;
   3. the fused step against the unfused plain-PyTorch model from the same
      weights and draws (loss and BN running stats within bf16 margins).
+  BNV. the BatchNorm moment variants (CMX_BN_VARIANT, read at call time
+     from cmx_torch.models.blocks.BN_VARIANT): for shift_ra, shift_max,
+     two_pass and naive, the global set before the step is built, phase 2's
+     step from the same weights, images and draws: one recorded step whose
+     kernel calls must equal phase 1's (K1 4, K2 4, K3 1 + 1) and whose
+     norms in the fused stages (down1, down2) take no moment in PyTorch; its
+     first loss within 2e-2 of phase 1's; every unfused BN moment of that
+     step in a stage of BNV_MAX_HW^2 or less, and every densify norm's,
+     held against a float64 two-pass of the same activations (the largest
+     relative var error printed); then the step as GRAPH runs it
+     (`graph_case`: eager and graph step time, every tensor bit for bit,
+     the capture's calls an eager step's; the capture fails on a host
+     sync, so shift_max's max and two_pass's second pass make none).
 The same SparK step with cmx_torch.ops.fused_conv.FUSED_IMPL="nhwc" (the
 NHWC strip kernels K6-K8 in place of K1/K2):
   A. one step recorded: exactly K6 1, K7 3, K8 3, K3 1 + 1 backward calls,
@@ -143,6 +156,15 @@ random images and one-hot masks from a seed):
      finite train and valid logs in every fold and the final fit, K1/K2
      launches equal to FT1's per-step calls times the training steps (the
      frozen-BN evaluations add none), test_<tag>.json with a finite dice.
+  FT-HOST. `cmx_torch.train.harness.fit` with host_metrics_every=1 (cmx's
+     host loop: eager steps, `evaluate` with the host metrics each epoch)
+     on the fused bf16 UNet (as FT-DP builds it), FT_HOST_EPOCHS epochs at
+     batch FT_CLI_BATCH over FT-CLI's fine-tune set less FT_HOST_VALID
+     validation images: K1/K2 launches = FT1's per-step calls x the steps,
+     finite logs with hausdorff and radius_arteries; then the same fit
+     with NaN validation images and masks (no epoch's dice_loss below inf):
+     a finite state that moved from the initial one (cmx's host loop keeps
+     the last epoch's). Both fits timed.
 CM-UNet pretraining (PRESETS["cmunet"]: full widths, 256^2 images, 224^2
 views, bf16, AdamW at lr 1.5e-4 * batch/256 on the preset's warm-up, wd
 0.05, clip 5, mask 0.65, T 0.07, EMA 0.996; cmx builds it unfused, so it
@@ -274,7 +296,9 @@ nothing past world size 1 on NCCL is claimed):
      alone (its own corpus, no encoder).
 The train step captured once as a CUDA graph (cmx_torch.train.graph, the
 counterpart of cmx's train.scan), with cuDNN's deterministic algorithms:
-  GRAPH. for SparK at BATCH (flat fused, K3), FT1 at BATCH, MAE1 at
+  GRAPH. for SparK at BATCH (flat fused, K3; and with FUSED_IMPL="nhwc",
+     whose replays must launch K6 1, K7 3, K8 3, K3 1 + 1 a step by the
+     profile's kernels, `nhwc_launches`), FT1 at BATCH, MAE1 at
      MAE_BATCH, G1 at GENESIS_BATCH, MoCo at MOCO_BATCH (crop_impl pallas,
      and PRESETS["moco_fast"]), CM1 at CM_BATCH and at 2 x CM_BATCH (the
      tightest fit on one card) and RM's SparK at RM_BATCH without remat,
@@ -289,8 +313,11 @@ counterpart of cmx's train.scan), with cuDNN's deterministic algorithms:
      wrapper calls seen at the capture equal to an eager step's (a replay
      calls no wrapper); step time eager and with the graph (the last
      GRAPH_STEPS - 2 steps of each, back to back), busy shares, capture
-     seconds, the pool and the peak memory. `python3 chip_smoke.py
-     --graph` builds the kernels and runs GRAPH alone.
+     seconds, the pool and the peak memory (a profile window whose device
+     time is under half of the step lost events and is taken again).
+     `python3 chip_smoke.py --graph` builds the kernels and runs GRAPH
+     alone; `python3 chip_smoke.py --bnv` builds them and runs BNV, FT-HOST
+     (on a corpus of its own) and GRAPH's NHWC case alone.
   The CLI phases (CLI, FT-CLI, CM-CLI, G-CLI, RM-CLI, MF-CLI, DP-CLI) run
      the CLIs as a user does, so their steps replay a graph (the first
      step of each run eager, the second captured; each fine-tune fit has
@@ -3564,9 +3591,10 @@ GRAPH_STEPS = 6  # GRAPH: N eager steps against warm-up, capture, N-1 replays
 
 
 def graph_cases():
-    """(label, make) of the GRAPH phase: make() -> (state, step, batch) as
-    the eager phases build them (the batch is the corpus the steps gather
-    their rows from)."""
+    """(label, make, FUSED_IMPL) of the GRAPH phase: make() -> (state, step,
+    batch) as the eager phases build them (the batch is the corpus the
+    steps gather their rows from), run with fused_conv.FUSED_IMPL set to
+    the third entry."""
     from cmx_torch.train.schedules import scaled_base_lr, warmup_cosine
 
     def cm(batch):
@@ -3576,21 +3604,23 @@ def graph_cases():
         return make_step(cfg, lr=lr, seed=0)
 
     return [
-        (f"SparK b{BATCH}", lambda: make_step(make_cfg(BATCH))),
-        (f"FT1 b{BATCH}", lambda: make_ft_step(True, BATCH)),
+        (f"SparK b{BATCH}", lambda: make_step(make_cfg(BATCH)), "flat"),
+        # the NHWC strip kernels K6-K8 replayed
+        (f"SparK-nhwc b{BATCH}", lambda: make_step(make_cfg(BATCH)), "nhwc"),
+        (f"FT1 b{BATCH}", lambda: make_ft_step(True, BATCH), "flat"),
         (f"MAE1 b{MAE_BATCH}", lambda: make_step(make_mae_cfg(MAE_BATCH,
-                                                              True))),
+                                                              True)), "flat"),
         (f"G1 b{GENESIS_BATCH}", lambda: make_step(make_genesis_cfg(
-            GENESIS_BATCH, True))),
+            GENESIS_BATCH, True)), "flat"),
         (f"MoCo-pallas b{MOCO_BATCH}", lambda: make_step(make_moco_cfg(
-            MOCO_BATCH, "pallas"))),
+            MOCO_BATCH, "pallas")), "flat"),
         (f"MoCo-fast b{MOCO_BATCH}", lambda: make_step(make_moco_fast_cfg(
-            MOCO_BATCH))),
-        (f"CM1 b{CM_BATCH}", lambda: cm(CM_BATCH)),
+            MOCO_BATCH)), "flat"),
+        (f"CM1 b{CM_BATCH}", lambda: cm(CM_BATCH), "flat"),
         # the tightest fit on one card: CM-UNet at 128 (eager 53.25 GiB)
-        (f"CM1 b{2 * CM_BATCH}", lambda: cm(2 * CM_BATCH)),
+        (f"CM1 b{2 * CM_BATCH}", lambda: cm(2 * CM_BATCH), "flat"),
         (f"RM b{RM_BATCH}", lambda: make_step(make_rm_cfg("spark", RM_BATCH,
-                                                          ""))),
+                                                          "")), "flat"),
     ]
 
 
@@ -3687,17 +3717,27 @@ def graph_case(label: str, build, steps: int) -> dict:
             differ = [n for n, t in state_tensors(state).items()
                       if not torch.equal(t, kept[n])]
         before = launch_counts()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for idx in idxs[steps:]:
-                one(idx)
+        for window in range(1, 4):
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for idx in idxs[steps:]:
+                    one(idx)
+                torch.cuda.synchronize()
+            kernels_a_step, busy = port_kernel_counts(prof, 2)
+            # a window whose device time is under half of the step lost
+            # events in the profiler (seen once: 33.8% with half of K1's
+            # launches missing): it is taken again, twice at most
+            if busy / out[f"{kind}_ms"] >= 0.5:
+                break
+            print(f"GRAPH {label}: the {kind} profile holds "
+                  f"{busy:.3f} device ms a step of {out[f'{kind}_ms']:.3f}: "
+                  "events lost, taken again", flush=True)
         after = launch_counts()
-        kernels_a_step, busy = port_kernel_counts(prof, 2)
+        out[f"windows_{kind}"] = window
         out[f"kernels_{kind}"] = kernels_a_step
         out[f"busy_{kind}"] = busy / out[f"{kind}_ms"]
-        out[f"calls_{kind}"] = {k: (after[k] - before[k]) // 2
+        out[f"calls_{kind}"] = {k: (after[k] - before[k]) // (2 * window)
                                 for k in after if after[k] != before[k]}
         if graph is not None:
             rep = graph.report
@@ -3731,7 +3771,8 @@ def graph_case(label: str, build, steps: int) -> dict:
     if differ or not same_m or graph_names != names:
         fail(f"GRAPH {label}: the graph's steps differ from the eager ones: "
              f"{differ[:8]} ({len(differ)} tensors), metrics equal {same_m}")
-    if not finite or rep["eager_steps"] != 1 or rep["replays"] != steps + 1:
+    if not finite or rep["eager_steps"] != 1 or \
+            rep["replays"] != steps - 1 + 2 * out["windows_graph"]:
         fail(f"GRAPH {label}: not finite, or {rep['eager_steps']} eager "
              f"steps and {rep['replays']} replays")
     if (rep["capture_calls"] != out["calls_eager"] or out["calls_graph"]
@@ -3742,20 +3783,58 @@ def graph_case(label: str, build, steps: int) -> dict:
     return out
 
 
-def graph_phase(steps: int = GRAPH_STEPS) -> list:
-    """Phase GRAPH (see the module docstring). Returns each case's
-    numbers."""
+def nhwc_launches(kernels_a_step: dict) -> dict:
+    """K6-K8's and K3's launches a step from a profile's device kernels (as
+    port_kernel_counts gives them): a K6 call is one stem kernel; a K8 call
+    one BN-backward dy kernel, one dX product and one dW product; a K7 call
+    one forward product, the products of cmx::conv3x3_mma_kernel that are
+    not K8's dX; K3 one kernel each way."""
+    def count(*keys, unless=None):
+        return sum(c for k, c in kernels_a_step.items()
+                   if any(x in k for x in keys)
+                   and not (unless and unless in k))
+
+    k8 = count("bn_bwd_dy")
+    return {"conv_stem_stats": count("stem_kernel"),
+            "conv3x3_mask_stats": count("cmx::conv3x3_mma_kernel") - k8,
+            "bwd_mega": k8,
+            "spark_loss_pallas": count("spark_loss_fwd_kernel"),
+            "spark_loss_bwd": count("spark_loss_bwd_kernel")}
+
+
+def graph_phase(steps: int = GRAPH_STEPS, only=None) -> list:
+    """Phase GRAPH (see the module docstring), or its cases whose labels
+    start with one of `only`. Returns each case's numbers."""
     import gc
 
     import torch
+
+    from cmx_torch.ops import fused_conv as fc
 
     t0 = time.perf_counter()
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         out = []
-        for label, build in graph_cases():
-            out.append(graph_case(label, build, steps))
+        for label, build, impl in graph_cases():
+            if only and not label.startswith(only):
+                continue
+            fc.FUSED_IMPL = impl
+            try:
+                out.append(graph_case(label, build, steps))
+            finally:
+                fc.FUSED_IMPL = "flat"
+            if impl == "nhwc":
+                r = out[-1]
+                counted = nhwc_launches(r["kernels_graph"])
+                print(f"GRAPH {label}: K6-K8 and K3 launches a replayed step "
+                      f"from the profile {counted} (expected "
+                      f"{NHWC_PER_STEP}); wrapper calls at the capture "
+                      f"{r['capture_calls']}", flush=True)
+                if counted != NHWC_PER_STEP or \
+                        r["capture_calls"] != NHWC_PER_STEP:
+                    fail(f"GRAPH {label}: the replayed step did not run K6 "
+                         "1, K7 3, K8 3 and K3 1 + 1")
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -3768,6 +3847,204 @@ def graph_phase(steps: int = GRAPH_STEPS) -> list:
               f"{r['peak_eager']:.2f} / {r['peak_graph']:.2f}" for r in out)
           + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+BNV_VARIANTS = ("shift_ra", "shift_max", "two_pass", "naive")
+BNV_MAX_HW = 64  # BNV holds the unfused moments of stages up to this size
+# the phase-1 SparK step's kernel calls (K1 4, K2 4, K3 1 + 1), for --bnv
+SPARK_PER_STEP = {"flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
+                  "spark_loss_pallas": 1, "spark_loss_bwd": 1}
+
+
+def moments_probe(model):
+    """(taken, errors, a MaskedBatchNorm.moments to patch in): while it is
+    patched in, `taken` lists the norms of `model` whose moments PyTorch
+    computes, and every such moment in a stage of BNV_MAX_HW^2 or less and
+    every densify norm's is held against a float64 two-pass of the same
+    activations and mask: errors[name] = (H, the largest relative error of
+    the variant's batch variance over the channels)."""
+    import torch
+
+    from cmx_torch.models import blocks
+
+    names = {id(m): n for n, m in model.named_modules()}
+    orig = blocks.MaskedBatchNorm.moments
+    taken, errors = [], {}
+
+    def moments(self, x, mask=None):
+        mean, var = orig(self, x, mask)
+        name = names.get(id(self), "?")
+        taken.append(name)
+        if x.shape[-2] <= BNV_MAX_HW or "densify" in name:
+            with torch.no_grad():
+                x64 = x.detach().double()
+                m64 = (torch.ones_like(x64[:, :1]) if mask is None
+                       else (mask[:, None] if mask.dim() == 3 else mask)
+                       .double())
+                n = m64.sum((0, 2, 3)).clamp(min=1.0)
+                mu = (x64 * m64).sum((0, 2, 3)) / n
+                v = (((x64 - mu[:, None, None]) ** 2) * m64).sum((0, 2, 3)) / n
+                rel = (var.detach().double() - v).abs() / v.clamp(min=1e-30)
+                errors[name] = (x.shape[-2], float(rel.max()))
+        return mean, var
+
+    return taken, errors, moments
+
+
+def bnv_phase(per_step: dict, flat_loss=None) -> dict:
+    """Phase BNV (see the module docstring): each CMX_BN_VARIANT value on
+    phase 2's SparK step. `per_step`/`flat_loss`: phase 1's recorded calls
+    and loss (None: the first variant's, for --bnv)."""
+    import gc
+
+    import torch
+
+    from cmx_torch.models import blocks
+
+    t0 = time.perf_counter()
+    saved = (blocks.BN_VARIANT, torch.backends.cudnn.deterministic)
+    orig_moments = blocks.MaskedBatchNorm.moments
+    fused_bns = ("encoder.down1.", "encoder.down2.")
+    out = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for variant in BNV_VARIANTS:
+            blocks.BN_VARIANT = variant
+            state, step, imgs = make_step(make_cfg(BATCH))
+            taken, errors, moments = moments_probe(state.model)
+            blocks.MaskedBatchNorm.moments = moments
+            try:
+                calls, loss = record_step(state, step, imgs)
+            finally:
+                blocks.MaskedBatchNorm.moments = orig_moments
+            calls = dict(collections.Counter(n for n, _ in calls))
+            del state, step, imgs
+            gc.collect()
+            torch.cuda.empty_cache()
+            flat_loss = loss if flat_loss is None else flat_loss
+            worst = max(errors.items(), key=lambda kv: kv[1][1])
+            rg = graph_case(f"BNV {variant}", lambda: make_step(make_cfg(
+                BATCH)), GRAPH_STEPS)
+            d_loss = abs(loss - flat_loss) / abs(flat_loss)
+            out[variant] = {"loss": loss, "d_loss": d_loss, "calls": calls,
+                            "worst_var_err": worst[1][1],
+                            "worst_at": f"{worst[0]} ({worst[1][0]}^2)",
+                            "moments": len(errors),
+                            "eager_ms": rg["eager_ms"],
+                            "graph_ms": rg["graph_ms"]}
+            print(f"BNV {variant}: recorded step's kernel calls {calls} "
+                  f"(phase 1's {dict(per_step)}); first loss {loss:.6f}, rel "
+                  f"diff to phase 1's (--bnv: the first variant's) "
+                  f"{d_loss:.3e} (tol 2e-2); {len(taken)} unfused BN "
+                  f"moments taken, "
+                  f"{len(errors)} held against a float64 two-pass (stages "
+                  f"<= {BNV_MAX_HW}^2 and the densify norms): largest "
+                  f"relative var error {worst[1][1]:.3e} at {worst[0]} "
+                  f"({worst[1][0]}^2); step_ms eager={rg['eager_ms']:.3f} "
+                  f"graph={rg['graph_ms']:.3f}", flush=True)
+            if calls != dict(per_step) or rg["calls_eager"] != dict(per_step):
+                fail(f"BNV {variant}: the step's kernel calls {calls} / "
+                     f"{rg['calls_eager']} are not phase 1's {dict(per_step)}")
+            in_fused = [n for n in taken if n.startswith(fused_bns)]
+            if in_fused:
+                fail(f"BNV {variant}: a fused stage's norm took its moments "
+                     f"in PyTorch: {in_fused}")
+            if not (math.isfinite(loss) and d_loss <= 2e-2):
+                fail(f"BNV {variant}: the first loss {loss} is not finite or "
+                     f"not within 2e-2 of {flat_loss}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        blocks.BN_VARIANT, torch.backends.cudnn.deterministic = saved
+    print("BNV (SparK batch %d, fused flat with K3; same call; step_ms eager "
+          "/ graph, largest relative var error): " % BATCH + "; ".join(
+              f"{v} {r['eager_ms']:.3f} / {r['graph_ms']:.3f} "
+              f"{r['worst_var_err']:.3e}" for v, r in out.items())
+          + f"; the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+FT_HOST_EPOCHS = 2  # FT-HOST: epochs of each fit
+FT_HOST_VALID = 8   # FT-HOST: validation images (the host metrics' cost)
+
+
+def ft_host_phase(data_dir: str, per_step: dict) -> dict:
+    """Phase FT-HOST (see the module docstring). Returns its seconds."""
+    import numpy as np
+    import torch
+
+    from cmx_torch.config.config import Config, apply_overrides
+    from cmx_torch.data.corpus import load_corpus
+    from cmx_torch.data.splits import list_corpus, make_splits
+    from cmx_torch.data.synthetic import resolve_corpus
+    from cmx_torch.train.harness import fit
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    apply_overrides(cfg, ["data.synthetic=True",
+                          f"data.synthetic_n={CLI_IMAGES}",
+                          f"data.data_dir={data_dir}",
+                          f"data.image_size={CLI_SIZE}"])
+    sp = make_splits(*list_corpus(resolve_corpus(cfg.data)),
+                     ratio=FT_CLI_RATIO)
+    imgs, masks = load_corpus(sp.finetune_x, sp.finetune_y, size=CLI_SIZE)
+    n = len(imgs) - FT_HOST_VALID
+    data = (imgs[:n], masks[:n], imgs[n:], masks[n:])
+    steps = FT_HOST_EPOCHS * -(-n // FT_CLI_BATCH)
+    wrappers = {name: k[0] for name, k in kernels().items()}
+    out = {}
+    for kind in ("finite", "nan"):
+        if kind == "nan":
+            data = data[:2] + tuple(np.full_like(a, np.nan)
+                                    for a in data[2:])
+        model = ftdp_model()
+        init = {k: t.clone() for k, t in model.state_dict().items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fit(*data, lr=FT_LR, epochs=FT_HOST_EPOCHS, batch=FT_CLI_BATCH,
+                  seed=42, model=model, device="cuda", host_metrics_every=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        expect = {k: per_step.get(k, 0) * steps for k in wrappers}
+        final = {k: v.detach().cpu() for k, v in
+                 res.state.model.state_dict().items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in final.values())
+        moved = [k for k, v in final.items() if not torch.equal(v, init[k])]
+        logs = {**res.train_logs, **res.valid_logs}
+        out[kind] = {"secs": secs, "launches": launches, "moved": len(moved),
+                     "valid": {k: res.valid_logs[k] for k in
+                               ("dice_loss", "hausdorff", "radius_arteries")}}
+        print(f"FT-HOST {kind} validation: fit of the fused bf16 UNet, "
+              f"host_metrics_every=1, {FT_HOST_EPOCHS} epochs at batch "
+              f"{FT_CLI_BATCH} over {n} training and {len(data[2])} "
+              f"validation images of FT-CLI's corpus: {secs:.3f} s; launches "
+              f"{launches} (expected {expect}: {steps} steps x phase FT1's "
+              f"calls, the frozen-BN evaluations add none); validation "
+              f"{out[kind]['valid']}; the returned state finite {finite}, "
+              f"{len(moved)} of {len(final)} tensors moved from the initial "
+              f"ones", flush=True)
+        if launches != expect:
+            fail(f"FT-HOST {kind}: K1/K2 did not run the expected number of "
+                 "times")
+        if not finite or not moved:
+            fail(f"FT-HOST {kind}: the returned state is not finite or is "
+                 "the initial one")
+        if kind == "finite":
+            need = ("hausdorff", "radius_arteries")
+            if not (all(k in logs for k in need) and all(
+                    math.isfinite(v) for vs in logs.values() for v in vs)):
+                fail("FT-HOST: the host loop's logs lack the host metrics or "
+                     f"are not finite: {logs}")
+        elif not all(math.isnan(v) for v in res.valid_logs["dice_loss"]):
+            fail("FT-HOST nan: a validation dice_loss was not NaN")
+        del res, model, final, init
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"FT-HOST: the phase took {secs:.1f} s", flush=True)
+    return {**out, "secs": secs}
 
 
 def main(argv=None) -> int:
@@ -3783,6 +4060,9 @@ def main(argv=None) -> int:
                         "and MF-CLI alone")
     p.add_argument("--graph", action="store_true",
                    help="build the kernels, then run phase GRAPH alone")
+    p.add_argument("--bnv", action="store_true",
+                   help="build the kernels, then run phases BNV, FT-HOST (on "
+                        "a corpus of its own) and GRAPH's NHWC case alone")
     p.add_argument("--dp-rank", type=int, default=None,
                    help="(spawned by DP2) run as this rank of the gloo group "
                         "its environment describes")
@@ -3844,6 +4124,15 @@ def main(argv=None) -> int:
         graph_phase()
         print(smi, flush=True)
         return 0
+    if args.bnv:
+        bnv_phase(SPARK_PER_STEP)
+        scratch = repo / "_scratch"
+        scratch.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as work:
+            ft_host_phase(f"{work}/data", FT_PER_STEP)
+        graph_phase(only=("SparK-nhwc",))
+        print(smi, flush=True)
+        return 0
     if args.dp or args.views or args.ftdp:
         scratch = repo / "_scratch"
         scratch.mkdir(exist_ok=True)
@@ -3903,6 +4192,7 @@ def main(argv=None) -> int:
           f"(fused/unfused {step_ms / unfused_ms:.3f})", flush=True)
     reference_phase("flat")
     print(f"SparK phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    bnv = bnv_phase(per_step, flat_loss)
 
     t0 = time.perf_counter()
     fc.FUSED_IMPL = "nhwc"
@@ -3950,6 +4240,7 @@ def main(argv=None) -> int:
         print(f"FT1/FT-NHWC phases took {time.perf_counter() - t0:.1f} s",
               flush=True)
         finetune_cli_phase(Path(work), encoder, data_dir, ft_per_step)
+        ft_host = ft_host_phase(data_dir, ft_per_step)
 
         t0 = time.perf_counter()
         cm = cm_phase(CM_BATCH, SPARK_STEPS)
@@ -4146,8 +4437,12 @@ def main(argv=None) -> int:
           f"launches_in_replays: each graph's capture calls times its "
           f"replays (GRAPH's {len(graph)} cases, the CLI phases, FT-CLI's "
           f"and FT-DP (a)'s fits); GRAPH graph/eager step_ms "
-          + ", ".join(f"{r['label']} {r['ratio']:.3f}" for r in graph),
-          flush=True)
+          + ", ".join(f"{r['label']} {r['ratio']:.3f}" for r in graph)
+          + "; BNV step_ms eager / graph " + ", ".join(
+              f"{v} {r['eager_ms']:.3f} / {r['graph_ms']:.3f}"
+              for v, r in bnv.items())
+          + f"; FT-HOST fit seconds {ft_host['finite']['secs']:.3f} (NaN "
+          f"validation {ft_host['nan']['secs']:.3f})", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

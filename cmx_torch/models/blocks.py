@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import os
 from typing import Optional
 
 import torch
@@ -24,6 +25,11 @@ import torch.utils.checkpoint
 
 from cmx_torch.ops import fused_conv as fc
 from cmx_torch.parallel import mesh
+
+# The BatchNorm moment variant (MaskedBatchNorm): "shift_ra" (the default),
+# "shift_max", "two_pass" or "naive", from the environment as cmx reads it
+# (cmx/models/blocks.py:36).
+BN_VARIANT = os.environ.get("CMX_BN_VARIANT", "shift_ra")
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -131,16 +137,35 @@ class Dense(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over active positions only (cmx's default `shift_ra`
-    variant): one-pass moments shifted by the stored running mean,
-        var = E[(x-s)^2 m]/n - (E[(x-s) m]/n)^2,  s = running mean (constant),
-    clamped at 0; running stats updated as 0.9*old + 0.1*batch with the
-    population variance. With mask=None it is plain BatchNorm. Normalizes as
-    one multiply-add in `dtype` with (C,)-sized folds computed in fp32. The
-    sums and counts are over the global batch: under data parallel they
-    are all-reduced (SyncBN, as cmx's global-view program computes them),
-    so the running stats, and with them the shift, stay equal on every
-    rank."""
+    """BatchNorm over active positions only, with cmx's batch moments:
+    mean and variance over the positions where the mask is 1, per channel,
+    in the statistics dtype promote(x.dtype, float32); running stats
+    updated as 0.9*old + 0.1*batch with the population variance. With
+    mask=None it is plain BatchNorm. Normalizes as one multiply-add in
+    `dtype` with (C,)-sized folds computed in fp32.
+
+    The moments follow the module global BN_VARIANT (the environment's
+    CMX_BN_VARIANT, read at import as cmx reads it; this module reads the
+    global at every call, so it may be set after the model is built):
+      * "shift_ra" (the default): one pass of shifted moments,
+        var = E[(x-s)^2 m]/n - (E[(x-s) m]/n)^2, s = the running mean
+        (a constant: no gradient);
+      * "shift_max": the same with s = the per-channel max of the active
+        positions of the subsample x[:, :, ::8, ::8] (cmx's NHWC
+        x[:, ::8, ::8, :]), 0 where none is active; no gradient;
+      * "two_pass": the mean, then E[(x-mean)^2 m]/n, the gradient through
+        both;
+      * any other value: "naive", s = 0 (cmx's fallback).
+    fp64 inputs always run "two_pass" in fp64 (cmx's spatial-parity
+    harness). Every variant casts mean and var to fp32 and clamps var at 0.
+    The fused DoubleConv takes its moments from its kernels' sums and
+    ignores the variant, as cmx's does.
+
+    The sums and counts are over the global batch: under data parallel
+    they are all-reduced (SyncBN, as cmx's global-view program computes
+    them): one all-reduce for "shift_ra" and "naive", a MAX all-reduce of
+    the subsample max before it for "shift_max", two for "two_pass". So the
+    running stats, and with them the shift, stay equal on every rank."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
                  momentum: float = 0.9, epsilon: float = 1e-5):
@@ -171,40 +196,76 @@ class MaskedBatchNorm(nn.Module):
         self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
         self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
 
+    def moments(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> tuple:
+        """(mean, var) of the batch in the statistics dtype, before their
+        fp32 cast and the clamp, by the variant BN_VARIANT names."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        red = (0, 2, 3)
+        c = xf.shape[1]
+        variant = "two_pass" if xf.dtype == torch.float64 else BN_VARIANT
+        if mask is None:
+            m = None
+            n = xf.new_full((1,), float(xf.numel() // c))
+        else:
+            m = mask.to(xf.dtype)
+            if m.dim() == 3:
+                m = m[:, None]
+            n = m.sum(red)
+        if variant == "two_pass":
+            xm = xf if m is None else xf * m
+            sums = mesh.all_reduce_sync(torch.cat([xm.sum(red), n]))
+            denom = sums[c:] if m is None else torch.clamp(sums[c:], min=1.0)
+            mean = sums[:c] / denom
+            d = xf - mean[:, None, None]
+            sq = d * d if m is None else d * d * m
+            return mean, mesh.all_reduce_sync(sq.sum(red)) / denom
+        if variant == "shift_ra":
+            s = self.mean.clone().to(xf.dtype)
+        elif variant == "shift_max":
+            s = _subsample_max(xf, m)
+        else:  # naive
+            s = xf.new_zeros((c,))
+        s = s[:, None, None]  # a constant: no gradient
+        d = xf - s if m is None else (xf - s) * m
+        # the sums over the global batch (one all-reduce under data
+        # parallel, whose backward sums the ranks' cotangents)
+        sums = mesh.all_reduce_sync(
+            torch.cat([d.sum(red), (d * d).sum(red), n]))
+        denom = sums[2 * c:] if m is None else torch.clamp(
+            sums[2 * c:], min=1.0)
+        dm = sums[:c] / denom
+        return dm + s[:, 0, 0], sums[c:2 * c] / denom - dm * dm
+
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B,C,H,W); mask (B,1,H,W) or (B,H,W) with 1 = active."""
         if not self.training:
             mean, var = self.mean, self.var
         else:
-            xf = x.float()
-            red = (0, 2, 3)
-            c = xf.shape[1]
-            s = self.mean.clone()[:, None, None]  # stop-gradient shift
-            if mask is None:
-                d = xf - s
-                n = xf.new_full((1,), float(xf.numel() // c))
-            else:
-                m = mask.float()
-                if m.dim() == 3:
-                    m = m[:, None]
-                d = (xf - s) * m
-                n = m.sum(red)
-            # the sums over the global batch (one all-reduce under data
-            # parallel, whose backward sums the ranks' cotangents)
-            sums = mesh.all_reduce_sync(
-                torch.cat([d.sum(red), (d * d).sum(red), n]))
-            denom = sums[2 * c:] if mask is None else torch.clamp(
-                sums[2 * c:], min=1.0)
-            dm = sums[:c] / denom
-            mean = dm + s[:, 0, 0]
-            var = torch.clamp(sums[c:2 * c] / denom - dm * dm, min=0.0)
+            mean, var = self.moments(x, mask)
+            mean = mean.float()
+            var = torch.clamp(var, min=0.0).float()
             self.update_running(mean.detach(), var.detach())
         out_dtype = self.dtype or x.dtype
         inv = torch.rsqrt(var + self.epsilon) * self.scale
         shift = self.bias - mean * inv
         return (x.to(out_dtype) * inv.to(out_dtype)[:, None, None]
                 + shift.to(out_dtype)[:, None, None])
+
+
+@torch.no_grad()
+def _subsample_max(xf: torch.Tensor, m: Optional[torch.Tensor]):
+    """shift_max's shift: the per-channel max of x[:, :, ::8, ::8] over its
+    active positions (masked ones filled with -3e38, as cmx), over the
+    global batch (a MAX all-reduce under data parallel); 0 where no
+    subsampled position is active."""
+    xs = xf[:, :, ::8, ::8]
+    if m is not None:
+        ms = m[:, :, ::8, ::8]
+        xs = torch.where(ms > 0, xs * ms, xs.new_full((), -3e38))
+    s = mesh.all_reduce_max(xs.amax((0, 2, 3)))
+    return torch.where(s < -1e37, torch.zeros_like(s), s)
 
 
 class DoubleConv(nn.Module):

@@ -1,6 +1,7 @@
 """SparK, MoCo and CM-UNet pretraining augmentation and the supervised
-fine-tune chain (port of cmx/ops/augment.py:34-366, 414-429, 444-449,
-596-744, 757-939, 942-947, 986-1110), written over the batch.
+fine-tune chain, and the library functions no path calls (port of
+cmx/ops/augment.py:34-366, 414-429, 444-463, 596-744, 747-939, 942-947,
+986-1110), written over the batch.
 
 The crop is torchvision's RandomResizedCrop window (continuous) resampled to
 (out, out) by the separable weight-matrix map of `_resize_weight_mat`:
@@ -193,6 +194,21 @@ def random_vflip(imgs: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     return torch.where(flip[:, None, None], imgs.flip(-2), imgs)
 
 
+def random_rot90(imgs: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Image i turned by k[i] in {0, 1, 2, 3} quarter turns, as jnp.rot90
+    turns an (H, W) image (cmx's random_rot90, albumentations
+    RandomRotate90; k uniform in 0..3 there). Square images: cmx's
+    lax.switch needs every branch's shape equal too."""
+    h, w = imgs.shape[-2:]
+    if h != w:
+        raise ValueError(f"random_rot90 takes square images, got {h}x{w}")
+    out = imgs
+    for q in (1, 2, 3):
+        out = torch.where((k == q)[:, None, None],
+                          torch.rot90(imgs, q, dims=(-2, -1)), out)
+    return out
+
+
 def _rotation_sources(h: int, w: int, angles: torch.Tensor):
     """(src_y, src_x), each (B, H, W) fp32: the source coordinates of every
     output pixel of a rotation by angles[i] (radians) about the centre."""
@@ -328,6 +344,14 @@ def gaussian_blur(imgs: torch.Tensor, sigma: torch.Tensor,
     for t in range(1, 2 * radius + 1):
         z = z + k[:, t] * y[:, :, t:t + w]
     return torch.where(apply[:, None, None], z, imgs)
+
+
+def gaussian_noise(imgs: torch.Tensor, noise: torch.Tensor,
+                   apply: torch.Tensor, sigma: float = 0.1) -> torch.Tensor:
+    """imgs + sigma * noise per image where apply[i] (cmx's gaussian_noise:
+    apply = U(0, 1) < p); `noise` is a standard normal field of the
+    images' shape."""
+    return torch.where(apply[:, None, None], imgs + sigma * noise, imgs)
 
 
 def gaussian_noise_max10(imgs: torch.Tensor, noise: torch.Tensor,
@@ -775,6 +799,14 @@ def _down_up(imgs: torch.Tensor, scale: float) -> torch.Tensor:
     lh, lw = max(int(h * scale), 1), max(int(w * scale), 1)
     small = F.interpolate(imgs[:, None], size=(lh, lw), mode="nearest-exact")
     return F.interpolate(small, size=(h, w), mode="nearest-exact")[:, 0]
+
+
+def downscale(imgs: torch.Tensor, apply: torch.Tensor,
+              scale: float = 0.25) -> torch.Tensor:
+    """cmx's downscale (albumentations Downscale at one scale): image i
+    down by `scale` and back up, nearest, where apply[i] (U(0, 1) < p in
+    cmx)."""
+    return torch.where(apply[:, None, None], _down_up(imgs, scale), imgs)
 
 
 def downscale_random(imgs: torch.Tensor, level: torch.Tensor,

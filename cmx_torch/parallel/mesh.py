@@ -17,6 +17,8 @@ rank order, and calls those sums itself through this module:
   * `all_reduce_sync`: differentiable, backward an all-reduce of the
     cotangents (BN moments, as SyncBatchNorm: the moments feed every rank's
     activations, so their cotangent is the sum of every rank's part);
+  * `all_reduce_max`: in place, no autograd (the shift of the BN
+    variant "shift_max": a max over the global batch, with no gradient);
   * `all_gather_batch` (rank order, no autograd), `replicate` (broadcast
     from rank 0), `rank_slice` (a rank's rows of a global-batch tensor) and
     `barrier`.
@@ -24,10 +26,10 @@ rank order, and calls those sums itself through this module:
 Each is a no-op when no process group exists, so a run without one is
 unchanged. Under a group of one process every collective is the identity
 (the values keep their bits). `counts` holds the calls and bytes of each
-collective ("all_reduce", "grad_all_reduce", "all_gather", "broadcast",
-"barrier", each also as "<op>_bytes"); tests and chip_smoke.py read it, as
-they read the kernels' `.launches`. Shards are equal: every rank holds B/W
-rows.
+collective ("all_reduce", "all_reduce_max", "grad_all_reduce",
+"all_gather", "broadcast", "barrier", each also as "<op>_bytes"); tests
+and chip_smoke.py read it, as they read the kernels' `.launches`. Shards
+are equal: every rank holds B/W rows.
 
 Scopes. Every collective, `info()`, `world_size()`, `global_batch()` and
 `rank_slice()` read the current scope, the world group unless one of two
@@ -165,6 +167,14 @@ def all_reduce_sum(t: torch.Tensor, op: str = "all_reduce") -> torch.Tensor:
     if active():
         _count(op, [t])
         dist.all_reduce(t, group=_group())
+    return t
+
+
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """The max over the ranks of `t`, in place (no autograd); returns `t`."""
+    if active():
+        _count("all_reduce_max", [t])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group())
     return t
 
 
@@ -331,3 +341,8 @@ def rank_slice_draws(draws: dict) -> dict:
     """`rank_slice` of every tensor of a dict of global-batch draws."""
     return {k: rank_slice(v) if isinstance(v, torch.Tensor) else v
             for k, v in draws.items()}
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """n rounded up to a multiple of m (cmx's pad_to_multiple)."""
+    return ((n + m - 1) // m) * m

@@ -38,8 +38,9 @@ epoch's batches come from and how it is validated:
 In both the best parameters and BN statistics are kept on the device where
 validation dice_loss improves (strict <), and the step metrics reach the
 host once, at the end. Where no epoch's dice_loss is below inf (all NaN),
-the state ends where it started, as in cmx's _fit_scan (cmx's host loop
-keeps the last one).
+each path ends where cmx's does: the scan path at the state it started
+from (cmx's _fit_scan), the host loop at the last epoch's (cmx's host loop
+restores a best state only when it has one).
 
 Data parallel: cmx's fit is data parallel inside one process, over its
 devices; the port maps a device to a rank (a process, one per card,
@@ -275,7 +276,8 @@ def _train_epochs(state, task, tx, eval_fn, train, valid, live, tms, vms, *,
                   scan, epochs, batch, seed, perms, host_metrics_every):
     """`fit`'s epochs on a rank of the current group: each epoch's step
     metrics appended to `tms` and validation metrics to `vms`; the live
-    tensors `live` end as the best epoch's."""
+    tensors `live` end as the best epoch's (with none, as the module
+    docstring says)."""
     (xtr, ytr), (xva, yva) = train, valid
     dev, n = xtr.device, xtr.shape[0]
     rank, ranks = mesh.info()
@@ -318,8 +320,12 @@ def _train_epochs(state, task, tx, eval_fn, train, valid, live, tms, vms, *,
             for b, t in zip(best, live):
                 b.copy_(torch.where(better, t, b))
     with torch.no_grad():
+        # the host loop keeps the last epoch's state where no epoch
+        # improved; best_metric comes from rank 0's values alone, so every
+        # rank decides alike
+        found = best_metric < float("inf")
         for b, t in zip(best, live):
-            t.copy_(b)
+            t.copy_(b if scan else torch.where(found, b, t))
     if scan and graph.report["capture_s"] is not None:
         print(f"fit: {graph.report['replays']} steps replayed from one CUDA "
               f"graph captured in {graph.report['capture_s']:.3f} s")

@@ -24,7 +24,9 @@ cross-block sum run in another order than the plain version's. The Genesis
 chain on the card against the CPU with the same draws: bit for bit but for
 the fit remap (1e-4 of the image's span), and no host sync; the decoder
 variants fused against unfused at the bf16 margins (loss 2e-2, BN stats
-5e-2).
+5e-2). The BN moment variants (CMX_BN_VARIANT) on the card against the CPU
+(running stats rel 1e-5, bf16 outputs and gradients rel 1e-2), and the
+SparK graph under shift_max and two_pass bit for bit.
 """
 
 import numpy as np
@@ -1011,6 +1013,59 @@ def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
             "genesis": _graph_genesis}[case]
     rep = _graph_against_eager(dev, lambda: make(dev))
     assert rep["capture_calls"] == calls
+
+
+@pytest.mark.parametrize("variant", ["shift_max", "two_pass"])
+def test_graph_replays_equal_eager_steps_under_bn_variants(dev, monkeypatch,
+                                                           variant):
+    """The SparK case above with CMX_BN_VARIANT's shift_max (a MAX
+    all-reduce's worth of work: the subsample max, on the device) or
+    two_pass (a second pass over every unfused activation): the capture
+    meets no host sync, replays equal eager steps bit for bit, and the
+    fused stages' kernel calls do not change."""
+    from cmx_torch.models import blocks
+
+    monkeypatch.setattr(blocks, "BN_VARIANT", variant)
+    monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    rep = _graph_against_eager(dev, lambda: _graph_spark(dev))
+    assert rep["capture_calls"] == {
+        "flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
+        "spark_loss_pallas": 1, "spark_loss_bwd": 1}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("variant", ["shift_ra", "shift_max", "two_pass",
+                                     "naive"])
+def test_bn_variant_on_card_matches_cpu(dev, monkeypatch, variant, masked):
+    """MaskedBatchNorm(bf16) under each CMX_BN_VARIANT on the card against
+    the same module on the CPU, from the same input, mask and output
+    cotangent: running mean and var rel 1e-5 (fp32 sums in another order),
+    the bf16 output and input gradient within 1e-2 of their largest entry
+    (a bf16 ulp flip)."""
+    from cmx_torch.models import blocks
+
+    monkeypatch.setattr(blocks, "BN_VARIANT", variant)
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn((4, 16, 32, 32), generator=g) + 0.5).to(torch.bfloat16)
+    m = (torch.rand((4, 1, 32, 32), generator=g) > 0.4).float() \
+        if masked else None
+    gy = torch.randn((4, 16, 32, 32), generator=g)
+    got = []
+    for d in ("cpu", dev):
+        bn = blocks.MaskedBatchNorm(16, torch.bfloat16).to(d).train()
+        with torch.no_grad():
+            bn.mean.fill_(0.25)
+        xi = x.to(d).detach().requires_grad_()
+        y = bn(xi, None if m is None else m.to(d))
+        (y.float() * gy.to(d)).sum().backward()
+        got.append([t.detach().float().cpu() for t in (y, xi.grad, bn.mean,
+                                                        bn.var)])
+    (y0, dx0, mean0, var0), (y1, dx1, mean1, var1) = got
+    assert torch.allclose(mean1, mean0, rtol=1e-5, atol=1e-7)
+    assert torch.allclose(var1, var0, rtol=1e-5, atol=0)
+    assert _rel(y1, y0) <= 1e-2
+    assert _rel(dx1, dx0) <= 1e-2
 
 
 def test_fit_through_the_graph_equals_the_eager_fit(dev, monkeypatch):

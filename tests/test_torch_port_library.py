@@ -14,6 +14,10 @@ preprocessing).
   expand_kernel_phase equal to cmx's; phase_conv5 against cmx (fp32 and
   bf16) and against the fine F.conv2d; phase_max against max_pool2d;
   up_transpose5 against cmx and the port's ConvTranspose.
+* augment's random_rot90, gaussian_noise and downscale (scale 0.25 and
+  0.5, p 0 and 1) against cmx's per-image functions with the draws their
+  keys make injected: bit for bit, the noise's sum rel <= 1e-6 (an FMA);
+  mesh.pad_to_multiple against cmx's.
 * StepTimer's summary; trace writes a Chrome trace.
 * analysis and preprocessing on seeded arrays: equal to cmx's.
 """
@@ -62,6 +66,75 @@ def _imgs(seed, shape=(B, 24, 20), unit=False):
 
 def _vmap(fn, keys, imgs):
     return np.asarray(jax.jit(jax.vmap(fn))(keys, imgs))
+
+
+# ------------------------------------------------- augment's library ops
+
+
+def test_random_rot90_matches_cmx():
+    """k = randint(key, 0, 4) per image, injected; square images, as cmx's
+    lax.switch needs. Bit for bit; the keys' seed is one whose draws take
+    every k."""
+    from cmx.ops import augment as ca
+    from cmx_torch.ops import augment as ta
+
+    keys = _keys(21)
+    imgs = _imgs(20, (B, 16, 16))
+    ref = _vmap(ca.random_rot90, keys, imgs)
+    k = torch.tensor([int(jax.random.randint(kk, (), 0, 4)) for kk in keys])
+    assert sorted(set(k.tolist())) == [0, 1, 2, 3]
+    got = ta.random_rot90(torch.from_numpy(imgs), k)
+    assert np.array_equal(got.numpy(), ref)
+    with pytest.raises(ValueError):
+        ta.random_rot90(torch.zeros((1, 4, 6)), torch.zeros(1, dtype=torch.long))
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0])
+def test_gaussian_noise_matches_cmx(p):
+    """kp, kn = split(key): noise = normal(kn), apply = uniform(kp) < p,
+    injected; sigma 0.25. Within rel 1e-6 (XLA may fuse the add)."""
+    from cmx.ops import augment as ca
+    from cmx_torch.ops import augment as ta
+
+    keys = _keys(22)
+    imgs = _imgs(23)
+    ref = _vmap(lambda k, x: ca.gaussian_noise(k, x, 0.25, p), keys, imgs)
+    noise, apply = [], []
+    for k in keys:
+        kp, kn = jax.random.split(k)
+        noise.append(np.asarray(jax.random.normal(kn, imgs.shape[1:],
+                                                  jnp.float32)))
+        apply.append(bool(jax.random.uniform(kp) < p))
+    got = ta.gaussian_noise(torch.from_numpy(imgs),
+                            torch.from_numpy(np.stack(noise)),
+                            torch.tensor(apply), sigma=0.25)
+    assert _rel(got.numpy(), ref) <= 1e-6
+    assert (p < 1) == (not all(apply))
+
+
+@pytest.mark.parametrize("p", [0.0, 1.0])
+@pytest.mark.parametrize("scale", [0.25, 0.5])
+def test_downscale_matches_cmx(scale, p):
+    """apply = uniform(key) < p, injected: the nearest down-and-up where it
+    applies, bit for bit."""
+    from cmx.ops import augment as ca
+    from cmx_torch.ops import augment as ta
+
+    keys = _keys(24)
+    imgs = _imgs(25)
+    ref = _vmap(lambda k, x: ca.downscale(k, x, scale, p), keys, imgs)
+    apply = torch.tensor([bool(jax.random.uniform(k) < p) for k in keys])
+    got = ta.downscale(torch.from_numpy(imgs), apply, scale)
+    assert np.array_equal(got.numpy(), ref)
+    assert np.array_equal(got.numpy(), imgs) == (p == 0.0)
+
+
+@pytest.mark.parametrize("n,m", [(0, 4), (7, 4), (8, 4), (9, 1), (33, 8)])
+def test_pad_to_multiple_matches_cmx(n, m):
+    from cmx.parallel.mesh import pad_to_multiple as cpad
+    from cmx_torch.parallel.mesh import pad_to_multiple
+
+    assert pad_to_multiple(n, m) == cpad(n, m)
 
 
 # ------------------------------------------------------------ augment_extra

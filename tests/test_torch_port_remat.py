@@ -7,7 +7,8 @@ running mean the forward saw.
     with remat equal the same steps without it bit for bit (loss, every
     gradient, every BN buffer, the optimizer state), in fp32 and in bf16
     with `fused=True` (the plain versions of K1/K2 here), for the levels
-    e1,e2,d1,d2 / bneck,e3,e4 / an unknown name; the fused recompute runs
+    e1,e2,d1,d2 / bneck,e3,e4 / an unknown name, and for e1,e2,d1,d2 with
+    the BN variant shift_max (CMX_BN_VARIANT); the fused recompute runs
     K1 again at the recomputed fused stages;
   * against cmx with the same remat_levels (fp32, cmx's mask injected):
     the tolerances of the SparK and MAE step tests;
@@ -45,6 +46,9 @@ LEVELS = {"e1e2d1d2": ("e1", "e2", "d1", "d2"),
           "bneck_e3e4": ("bneck", "e3", "e4"),
           "unknown": ("e9",)}
 ABSORBED = re.compile(r"(double_conv|bottleneck)\.conv[01]\.bias$")
+# cases of the BN moment variants (CMX_BN_VARIANT) beside the default
+# shift_ra: an id -> (a LEVELS key, the variant)
+VARIANT_CASES = {"e1e2d1d2_shift_max": ("e1e2d1d2", "shift_max")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -141,19 +145,24 @@ def baselines():
     return {}
 
 
-@pytest.mark.parametrize("levels", list(LEVELS), ids=list(LEVELS))
+@pytest.mark.parametrize("levels", list(LEVELS) + list(VARIANT_CASES),
+                         ids=list(LEVELS) + list(VARIANT_CASES))
 @pytest.mark.parametrize("dtype,fused", [(torch.float32, False),
                                          (torch.bfloat16, True)],
                          ids=["fp32", "bf16_fused"])
 @pytest.mark.parametrize("kind", ["spark", "mae"])
 def test_remat_steps_equal_steps_without_remat(kind, dtype, fused, levels,
                                                baselines, monkeypatch):
+    from cmx_torch.models import blocks
     from cmx_torch.ops import fused_conv as tfc
 
     # 64^2 images: down1 (64^2) and down2 (32^2) pass the fused gate, as
     # at 256^2 (and, in the MAE UNet, up2 and up1)
     monkeypatch.setattr(tfc, "FUSED_MIN_HW", 32)
-    key = (kind, dtype, fused)
+    # shift_max: the recompute takes the same subsample max again
+    levels, variant = VARIANT_CASES.get(levels, (levels, "shift_ra"))
+    monkeypatch.setattr(blocks, "BN_VARIANT", variant)
+    key = (kind, dtype, fused, variant)
     if key not in baselines:
         baselines[key] = _two_steps(kind, dtype, fused, ())
     ref = baselines[key]
