@@ -935,6 +935,22 @@ def kernels_under(event):
         yield from kernels_under(child)
 
 
+def busy_ms_a_step(prof, n: int) -> float:
+    """The device's busy ms a step in a profile of n steps: the union of
+    its operations' intervals, so kernels that overlap count once (a sum of
+    their device times counts them twice and can pass the step's time)."""
+    from torch.autograd import DeviceType
+
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / n
+
+
 def profile_steps(run_step, n: int, step_ms: float, label: str,
                   core=None):
     """Device time by kernel over n steps (torch.profiler / CUPTI), and the
@@ -955,7 +971,7 @@ def profile_steps(run_step, n: int, step_ms: float, label: str,
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    busy_ms = busy_ms_a_step(prof, n)
     port_ms = sum(e.self_device_time_total for e in kernels
                   if any(k in e.key for k in PORT_KERNEL_NAMES)) / 1e3 / n
     print(f"{label} profile of {n} steps: device busy {busy_ms:.3f} ms/step "
@@ -3649,7 +3665,7 @@ def port_kernel_counts(prof, n: int) -> dict:
 
     ks = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in ks) / 1e3 / n
+    busy = busy_ms_a_step(prof, n)
     return {e.key: e.count / n for e in ks
             if any(k in e.key for k in PORT_KERNEL_NAMES)}, busy
 

@@ -44,7 +44,8 @@ Differences from cmx's CLI, each for a reason:
     the same config, a run cut after a checkpoint and started again ends
     where an uninterrupted one does, bit for bit on the CPU.
   * `train.profile_dir` traces one epoch with torch.profiler (a Chrome
-    trace, cmx_torch.utils.profiling.trace) in place of jax.profiler.
+    trace, cmx_torch.utils.profiling.trace) in place of jax.profiler, with
+    the program's spans on (`train.trace_spans`, the port's own key).
   * cmx's persistent compilation cache (cmx/utils/compile_cache.py) has no
     counterpart: nothing here is compiled ahead (the CUDA kernels build
     once into cmx_torch/_build/).
@@ -72,14 +73,19 @@ from cmx_torch.parallel.dist import (InfiniteBatchSampler,
                                      local_rank, on_main, process_info,
                                      shutdown)
 from cmx_torch.train.trainer import Task, extra_buffers
-from cmx_torch.utils.profiling import trace
+from cmx_torch.utils.profiling import set_spans, trace
 
 
 def build_task(cfg: Config, dtype: torch.dtype, device="cuda"
                ) -> Tuple[Task, torch.nn.Module]:
     """(task, model) for cfg.task.name; the model's random weights come
     from cfg.train.seed and live on `device`. A task with state of its own
-    (MoCo, CM-UNet) makes it with `task.init_extra(gen)`."""
+    (MoCo, CM-UNet) makes it with `task.init_extra(gen)`. Sets the
+    process's span switch (cmx_torch.utils.profiling.set_spans): on with
+    train.trace_spans, or with train.profile_dir, whose trace of the
+    run's second epoch then names the step's parts (the graph holds the
+    spans that were on at its capture, in the first)."""
+    set_spans(cfg.train.trace_spans or bool(cfg.train.profile_dir))
     t = cfg.task
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.train.seed)

@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 
 from cmx_torch.ops import fused_conv as fc
 from cmx_torch.parallel import mesh
+from cmx_torch.utils.profiling import span
 
 # The BatchNorm moment variant (MaskedBatchNorm): "shift_ra" (the default),
 # "shift_max", "two_pass" or "naive", from the environment as cmx reads it
@@ -239,18 +240,22 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B,C,H,W); mask (B,1,H,W) or (B,H,W) with 1 = active."""
-        if not self.training:
-            mean, var = self.mean, self.var
-        else:
-            mean, var = self.moments(x, mask)
-            mean = mean.float()
-            var = torch.clamp(var, min=0.0).float()
-            self.update_running(mean.detach(), var.detach())
-        out_dtype = self.dtype or x.dtype
-        inv = torch.rsqrt(var + self.epsilon) * self.scale
-        shift = self.bias - mean * inv
-        return (x.to(out_dtype) * inv.to(out_dtype)[:, None, None]
+        """x (B,C,H,W); mask (B,1,H,W) or (B,H,W) with 1 = active. The
+        span `norm` with spans on (cmx_torch.utils.profiling)."""
+        with span("norm", x) as sp:
+            x = sp.inputs(x)
+            if not self.training:
+                mean, var = self.mean, self.var
+            else:
+                mean, var = self.moments(x, mask)
+                mean = mean.float()
+                var = torch.clamp(var, min=0.0).float()
+                self.update_running(mean.detach(), var.detach())
+            out_dtype = self.dtype or x.dtype
+            inv = torch.rsqrt(var + self.epsilon) * self.scale
+            shift = self.bias - mean * inv
+            return sp.outputs(
+                x.to(out_dtype) * inv.to(out_dtype)[:, None, None]
                 + shift.to(out_dtype)[:, None, None])
 
 

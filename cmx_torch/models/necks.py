@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from cmx_torch.models.blocks import Dense, MaskedBatchNorm
 from cmx_torch.parallel import mesh
+from cmx_torch.utils.profiling import span
 
 
 class FeatureBatchNorm(MaskedBatchNorm):
@@ -27,19 +28,22 @@ class FeatureBatchNorm(MaskedBatchNorm):
         super().__init__(features, torch.float32, momentum=0.9, epsilon=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            c = x.shape[1]
-            # over the global batch (SyncBN under data parallel)
-            sums = mesh.all_reduce_sync(torch.cat(
-                [x.sum(0), (x * x).sum(0), x.new_full((1,), x.shape[0])]))
-            mean = sums[:c] / sums[2 * c:]
-            var = torch.clamp(sums[c:2 * c] / sums[2 * c:] - mean * mean,
-                              min=0.0)
-            self.update_running(mean.detach(), var.detach())
-        else:
-            mean, var = self.mean, self.var
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) \
-            + self.bias
+        with span("norm", x) as sp:
+            x = sp.inputs(x)
+            if self.training:
+                c = x.shape[1]
+                # over the global batch (SyncBN under data parallel)
+                sums = mesh.all_reduce_sync(torch.cat(
+                    [x.sum(0), (x * x).sum(0), x.new_full((1,), x.shape[0])]))
+                mean = sums[:c] / sums[2 * c:]
+                var = torch.clamp(sums[c:2 * c] / sums[2 * c:] - mean * mean,
+                                  min=0.0)
+                self.update_running(mean.detach(), var.detach())
+            else:
+                mean, var = self.mean, self.var
+            return sp.outputs(
+                (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale)
+                + self.bias)
 
 
 class NonLinearNeck(nn.Module):

@@ -32,6 +32,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -60,11 +61,15 @@ _SIGNATURES = {
     "nhwc_conv_bwd": {"cmx_nhwc_bwd": "ppppppppppp" + "iiiiiiii" + "p",
                       "cmx_dw_blocks_per_sm": "i",
                       "cmx_mma_geometry": "p"},
+    "span_marks": {"cmx_span_count": "", "cmx_span_mark": "ii" + "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas registers/spills)
+# Seconds this process has spent in `load` building and loading libraries,
+# cumulative (StepGraph.report's kernel_load_s is its change over a step).
+load_seconds = 0.0
 
 
 def _cuda_tool(name: str) -> str:
@@ -133,15 +138,20 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library `name` (built on first use)."""
+    global load_seconds
     lib = _libs.get(name)
     if lib is None:
-        path = build_all()[name]
-        lib = ctypes.CDLL(str(path))
-        for fn, sig in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = [_CTYPES[c] for c in sig]
-            f.restype = ctypes.c_int
-        _libs[name] = lib
+        t0 = time.perf_counter()
+        try:
+            path = build_all()[name]
+            lib = ctypes.CDLL(str(path))
+            for fn, sig in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = [_CTYPES[c] for c in sig]
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        finally:
+            load_seconds += time.perf_counter() - t0
     return lib
 
 

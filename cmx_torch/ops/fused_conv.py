@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from cmx_torch.ops import _build
 from cmx_torch.parallel import mesh
+from cmx_torch.utils.profiling import span
 
 # Strip height of the TPU kernels; blocks.DoubleConv's gate requires
 # H % STRIP == 0 so that the port fuses exactly where cmx does, and the NHWC
@@ -473,6 +474,12 @@ class FusedDoubleConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, m, w0, b0, g0, be0, w1, b1, g1, be1):
+        with span("norm", x):
+            return FusedDoubleConv._forward(ctx, x, m, w0, b0, g0, be0, w1,
+                                            b1, g1, be1)
+
+    @staticmethod
+    def _forward(ctx, x, m, w0, b0, g0, be0, w1, b1, g1, be1):
         cdt = _cdt()
         mb = m.to(cdt)
         if x.shape[-1] == 1:
@@ -499,7 +506,7 @@ class FusedDoubleConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, *_stat_cts):
-        with mesh.in_scope(ctx.scope):
+        with mesh.in_scope(ctx.scope), span("norm", g_out):
             return FusedDoubleConv._backward(ctx, g_out)
 
     @staticmethod

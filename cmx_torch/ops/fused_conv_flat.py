@@ -42,6 +42,7 @@ from cmx_torch.ops.fused_conv import (_EPS, _aligned16, _bwd_vecs, _cdt,
                                         _pack_conv_weights, _ptr, _stats,
                                         _stream)
 from cmx_torch.parallel import mesh
+from cmx_torch.utils.profiling import span
 
 # What the flat kernels take: H % 8 == 0 (the conv's 8-row output tile, two
 # 4-row dW tiles) and W % 8 == 0 (a channel's image row is whole 16-byte
@@ -227,6 +228,12 @@ class FlatDoubleConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xf, mflat, w0, b0, g0, be0, w1, b1, g1, be1, H, W):
+        with span("norm", xf):
+            return FlatDoubleConv._forward(ctx, xf, mflat, w0, b0, g0, be0,
+                                           w1, b1, g1, be1, H, W)
+
+    @staticmethod
+    def _forward(ctx, xf, mflat, w0, b0, g0, be0, w1, b1, g1, be1, H, W):
         cdt = _cdt()
         in_dtype = xf.dtype
         xf = xf.to(cdt)
@@ -253,7 +260,7 @@ class FlatDoubleConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, *_stat_cts):
-        with mesh.in_scope(ctx.scope):
+        with mesh.in_scope(ctx.scope), span("norm", g_out):
             return FlatDoubleConv._backward(ctx, g_out)
 
     @staticmethod

@@ -48,6 +48,7 @@ from cmx_torch.ops.augment import cmunet_two_views_batch, cmunet_view_draws
 from cmx_torch.ops.masking import random_patch_mask
 from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
+from cmx_torch.utils.profiling import span
 
 REDUCED_WIDTH = 256  # the target's 1x1 reduce: BOTTLENECK_WIDTH -> 256
 
@@ -130,19 +131,20 @@ def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
                 extra: Optional[Dict[str, Any]] = None):
         draws = draws or {}
         bg = mesh.global_batch(imgs.shape[0])
-        if augment:
-            d = mesh.rank_slice_draws(cmunet_view_draws(
-                gen, bg, imgs.shape[1], imgs.shape[2], view_size, 31,
-                draws.get("views")))
-            v1, v2 = cmunet_two_views_batch(imgs, view_size, 31, crop_impl,
-                                            gen, d)
-        else:
-            v1 = v2 = imgs[:, :view_size, :view_size]
-        b, h, _ = v1.shape
-        active = draws.get("active")
-        if active is None:
-            active = random_patch_mask(gen, bg, h, patch_size, mask_ratio)
-        active = mesh.rank_slice(active).to(v1.device).float()
+        with span("views", imgs):
+            if augment:
+                d = mesh.rank_slice_draws(cmunet_view_draws(
+                    gen, bg, imgs.shape[1], imgs.shape[2], view_size, 31,
+                    draws.get("views")))
+                v1, v2 = cmunet_two_views_batch(imgs, view_size, 31,
+                                                crop_impl, gen, d)
+            else:
+                v1 = v2 = imgs[:, :view_size, :view_size]
+            b, h, _ = v1.shape
+            active = draws.get("active")
+            if active is None:
+                active = random_patch_mask(gen, bg, h, patch_size, mask_ratio)
+            active = mesh.rank_slice(active).to(v1.device).float()
 
         pred_pixel, pred_s, _ = model(v1, active)
         target = extra["target_model"]
@@ -152,23 +154,29 @@ def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
 
         # Reconstruction: each row of view 1 normalised over W (biased
         # variance), the error on the masked pixels (masked = 1 - active).
-        tgt = v1.float()
-        tgt = ((tgt - tgt.mean(-1, keepdim=True))
-               / torch.sqrt(tgt.var(-1, unbiased=False, keepdim=True) + 1e-6))
-        masked = 1.0 - active
-        err = torch.square(pred_pixel[:, 1] - tgt)
-        sums = mesh.all_reduce_shared(
-            torch.stack([(err * masked).sum(), masked.sum()]))
-        loss_rc = sums[0] / torch.clamp(sums[1], min=1.0)
+        with span("loss", pred_pixel) as sp:
+            pred_pixel = sp.inputs(pred_pixel)
+            tgt = v1.float()
+            tgt = ((tgt - tgt.mean(-1, keepdim=True))
+                   / torch.sqrt(tgt.var(-1, unbiased=False, keepdim=True)
+                                + 1e-6))
+            masked = 1.0 - active
+            err = torch.square(pred_pixel[:, 1] - tgt)
+            sums = mesh.all_reduce_shared(
+                torch.stack([(err * masked).sum(), masked.sum()]))
+            loss_rc = sp.outputs(sums[0] / torch.clamp(sums[1], min=1.0))
 
         # Contrastive: InfoNCE over the global batch, a rank's queries
         # against every rank's targets.
-        targets = mesh.all_gather_batch(_normalize_rows(proj_t))
-        score = _normalize_rows(pred_s) @ targets.t()
-        labels = (torch.arange(b, device=score.device)
-                  + mesh.info()[0] * b)
-        loss_ct = mesh.global_mean(
-            2.0 * temperature * F.cross_entropy(score / temperature, labels))
+        with span("loss", pred_s) as sp:
+            pred_s = sp.inputs(pred_s)
+            targets = mesh.all_gather_batch(_normalize_rows(proj_t))
+            score = _normalize_rows(pred_s) @ targets.t()
+            labels = (torch.arange(b, device=score.device)
+                      + mesh.info()[0] * b)
+            loss_ct = sp.outputs(mesh.global_mean(
+                2.0 * temperature * F.cross_entropy(score / temperature,
+                                                    labels)))
         loss = ct_weight * loss_ct + rc_weight * loss_rc
         return loss, TaskAux(metrics={"loss_ct": loss_ct.detach(),
                                       "loss_rc": loss_rc.detach()})

@@ -23,6 +23,7 @@ from cmx_torch.ops.augment import spark_aug_draws, spark_pretrain_aug
 from cmx_torch.ops.masking import spark_active_mask, upsample_mask
 from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
+from cmx_torch.utils.profiling import span
 
 
 class SparKModel(nn.Module):
@@ -144,24 +145,29 @@ def make_spark_task(model: Optional[SparKModel] = None, *,
         draws = draws or {}
         b, h, w = imgs.shape
         bg = mesh.global_batch(b)
-        if augment:
-            d = mesh.rank_slice_draws(spark_aug_draws(
-                gen, bg, h, w, input_size,
-                {k: draws.get(k) for k in ("crop", "flip")}))
-            imgs = spark_pretrain_aug(imgs, input_size, gen, **d)
-        f = imgs.shape[1] // DOWNSAMPLE_RATIO
-        active = draws.get("active")
-        if active is None:
-            active = spark_active_mask(gen, bg, f, model.mask_ratio)
-        active = mesh.rank_slice(active).to(imgs.device).float()
+        with span("views", imgs):
+            if augment:
+                d = mesh.rank_slice_draws(spark_aug_draws(
+                    gen, bg, h, w, input_size,
+                    {k: draws.get(k) for k in ("crop", "flip")}))
+                imgs = spark_pretrain_aug(imgs, input_size, gen, **d)
+            f = imgs.shape[1] // DOWNSAMPLE_RATIO
+            active = draws.get("active")
+            if active is None:
+                active = spark_active_mask(gen, bg, f, model.mask_ratio)
+            active = mesh.rank_slice(active).to(imgs.device).float()
         rec = model(imgs, active)
-        if pallas_loss:
-            from cmx_torch.ops.pallas_ops import spark_loss_pallas_trainable
+        with span("loss", rec) as sp:
+            rec = sp.inputs(rec)
+            if pallas_loss:
+                from cmx_torch.ops.pallas_ops import \
+                    spark_loss_pallas_trainable
 
-            loss = spark_loss_pallas_trainable(rec, imgs.detach(), active,
-                                               DOWNSAMPLE_RATIO)
-        else:
-            loss = spark_loss(rec, imgs, active)
+                loss = spark_loss_pallas_trainable(rec, imgs.detach(), active,
+                                                   DOWNSAMPLE_RATIO)
+            else:
+                loss = spark_loss(rec, imgs, active)
+            loss = sp.outputs(loss)
         return loss, TaskAux(metrics={"recon": loss.detach()})
 
     return Task(name="spark", loss_fn=loss_fn), model

@@ -40,10 +40,19 @@ under torch.cuda.set_sync_debug_mode("error"), so a host synchronisation
 Launch accounting: a kernel wrapper counts its launches when it is called,
 so its count sees the eager steps and the capture, never a replay. Each
 graph's report (`StepGraph.report`, also appended to `REPORTS`) holds the
-wrapper calls made during its capture (`capture_calls`), the collectives
-it captured (`capture_collectives`, from `mesh.counts`), its `replays`,
-its `eager_steps`, `capture_s` and the bytes its pool holds: a kernel ran
+wrapper calls made during its capture (`capture_calls`; with spans on,
+`span_mark` counts the span markers the graph holds), the collectives it
+captured (`capture_collectives`, from `mesh.counts`), its `replays`, its
+`eager_steps`, `capture_s` and the bytes its pool holds: a kernel ran
 eager calls + capture_calls x replays times.
+
+Set-up counters, in the report too: `eager_s`, the first eager step, ended
+on a device synchronise; `kernel_load_s`, the seconds cmx_torch.ops._build
+spent building and loading kernel libraries during it; `first_replay_s`,
+the first replay, ended on a synchronise (None where nothing is captured).
+Each costs one synchronise, once. With spans on (cmx_torch.utils.profiling)
+the gather is the span `feed`, and the host ranges `cmx.eager`,
+`cmx.capture` and `cmx.replay` hold each step's host work.
 """
 
 from __future__ import annotations
@@ -55,8 +64,10 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from cmx_torch.ops import _build
 from cmx_torch.parallel import mesh
 from cmx_torch.train.state import TrainState
+from cmx_torch.utils import profiling
 
 REPORTS: List[Dict[str, Any]] = []  # every captured graph's report
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,7 +86,8 @@ def launch_counts() -> Dict[str, int]:
            fused_conv_flat.flat_bwd_mega, pallas_ops.spark_loss_pallas,
            pallas_ops.spark_loss_bwd, pallas_crop.crop_resize_pallas,
            pallas_ops.bn_relu_mask_pallas, fused_conv.conv_stem_stats,
-           fused_conv.conv3x3_mask_stats, fused_conv.bwd_mega)
+           fused_conv.conv3x3_mask_stats, fused_conv.bwd_mega,
+           profiling.span_mark)
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -118,7 +130,8 @@ class StepGraph:
         self.report: Dict[str, Any] = {
             "label": label, "eager_steps": 0, "replays": 0,
             "capture_calls": {}, "capture_collectives": {},
-            "capture_s": None, "pool_bytes": None}
+            "capture_s": None, "pool_bytes": None,
+            "eager_s": None, "kernel_load_s": None, "first_replay_s": None}
 
     def _row(self, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
         if not self.names:
@@ -126,11 +139,22 @@ class StepGraph:
         return torch.stack([metrics[k].float() for k in self.names])
 
     def _eager(self, state: TrainState, idx: torch.Tensor) -> torch.Tensor:
-        self.gen.manual_seed(state.step_seed())
-        metrics = self.body(state, self.gather(idx), self.gen)
-        state.step += 1
-        self.report["eager_steps"] += 1
-        return self._row(metrics)
+        first = not self.report["eager_steps"]
+        t0, load0 = time.perf_counter(), _build.load_seconds
+        with profiling.host_range("eager"):
+            self.gen.manual_seed(state.step_seed())
+            with profiling.span("feed", idx):
+                batch = self.gather(idx)
+            metrics = self.body(state, batch, self.gen)
+            state.step += 1
+            self.report["eager_steps"] += 1
+            row = self._row(metrics)
+        if first:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.report["eager_s"] = time.perf_counter() - t0
+            self.report["kernel_load_s"] = _build.load_seconds - load0
+        return row
 
     def _capture(self, state: TrainState, idx: torch.Tensor) -> None:
         torch.cuda.synchronize(self.device)
@@ -147,8 +171,9 @@ class StepGraph:
             with torch.cuda.graph(graph):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    self.static_metrics = self.body(
-                        state, self.gather(self.static_idx), self.gen)
+                    with profiling.span("feed", self.static_idx):
+                        batch = self.gather(self.static_idx)
+                    self.static_metrics = self.body(state, batch, self.gen)
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
         except Exception as e:  # named, then raised: no eager fallback
@@ -172,17 +197,25 @@ class StepGraph:
         if not self.captures or not self.report["eager_steps"]:
             return self._eager(state, idx)
         if self.graph is None:
-            self._capture(state, idx)
+            with profiling.host_range("capture"):
+                self._capture(state, idx)
         elif idx.shape != self.static_idx.shape:
             raise ValueError(f"the {self.report['label']} graph was captured "
                              f"for indices {tuple(self.static_idx.shape)}, "
                              f"not {tuple(idx.shape)}")
-        self.static_idx.copy_(idx)
-        self.gen.manual_seed(state.step_seed())
-        self.graph.replay()
-        state.step += 1
-        self.report["replays"] += 1
-        return self._row(self.static_metrics)
+        first = not self.report["replays"]
+        t0 = time.perf_counter()
+        with profiling.host_range("replay"):
+            self.static_idx.copy_(idx)
+            self.gen.manual_seed(state.step_seed())
+            self.graph.replay()
+            state.step += 1
+            self.report["replays"] += 1
+            row = self._row(self.static_metrics)
+        if first:
+            torch.cuda.synchronize(self.device)
+            self.report["first_replay_s"] = time.perf_counter() - t0
+        return row
 
     def run(self, state: TrainState, idxs: torch.Tensor
             ) -> Dict[str, torch.Tensor]:

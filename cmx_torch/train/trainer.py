@@ -12,7 +12,11 @@ running stats and every tensor of `extra` when the loss or the gradient
 norm is not finite (decided on the device; no host synchronisation) --
 with draws from a generator seeded from (seed, step), then the host's
 bookkeeping: the step counter. A CUDA graph captures the body alone
-(cmx_torch.train.graph).
+(cmx_torch.train.graph). With spans on (cmx_torch.utils.profiling) the
+body's parts are the spans `guard` (the buffers' copies; their restores and
+the post-update), `forward` (the loss_fn), `backward` (the gradients and
+their all-reduce) and `optimizer` (the norm, the finite test and the
+update).
 
 Under data parallel (cmx_torch.parallel.mesh) every rank runs the step on
 its B/W rows of the global batch: the task's draws are made for the global
@@ -33,6 +37,7 @@ import torch.nn as nn
 from cmx_torch.parallel import mesh
 from cmx_torch.train.optim import global_grad_norm
 from cmx_torch.train.state import TrainState
+from cmx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -77,18 +82,23 @@ def make_train_body(task: Task, tx) -> Callable:
              ) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
-        buffers = list(model.buffers()) + extra_buffers(state.extra)
-        old_buffers = [b.clone() for b in buffers]
         params = tx.params
-        loss, aux = task.loss_fn(model, batch, gen, draws, state.extra)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = mesh.all_reduce_tensors(
-            [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)])
-        gnorm = global_grad_norm(grads)
-        finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-        tx.step(grads, finite)
-        with torch.no_grad():
+        lead = params[0]  # the spans' markers run on its device's stream
+        with span("guard", lead):
+            buffers = list(model.buffers()) + extra_buffers(state.extra)
+            old_buffers = [b.clone() for b in buffers]
+        with span("forward", lead):
+            loss, aux = task.loss_fn(model, batch, gen, draws, state.extra)
+        with span("backward", lead):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = mesh.all_reduce_tensors(
+                [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)])
+        with span("optimizer", lead):
+            gnorm = global_grad_norm(grads)
+            finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+            tx.step(grads, finite)
+        with span("guard", lead), torch.no_grad():
             for b, old in zip(buffers, old_buffers):
                 b.copy_(torch.where(finite, b, old))
             if task.post_update is not None:

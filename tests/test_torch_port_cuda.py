@@ -26,7 +26,9 @@ the fit remap (1e-4 of the image's span), and no host sync; the decoder
 variants fused against unfused at the bf16 margins (loss 2e-2, BN stats
 5e-2). The BN moment variants (CMX_BN_VARIANT) on the card against the CPU
 (running stats rel 1e-5, bf16 outputs and gradients rel 1e-2), and the
-SparK graph under shift_max and two_pass bit for bit.
+SparK graph under shift_max and two_pass bit for bit. With the program's
+spans on, a captured CM-UNet step's replays run its span markers in
+capture order.
 """
 
 import numpy as np
@@ -1132,3 +1134,56 @@ def test_a_capture_that_meets_a_host_sync_raises(dev, hazard):
     with pytest.raises(GraphCaptureError, match="in body: scale = "):
         graph.step(state, idx)
     assert graph.graph is None and state.step == 1
+
+
+def test_graph_replays_the_span_markers_in_capture_order(dev, monkeypatch):
+    """A CM-UNet step (full width, fp32, view 32, batch 4) captured with the
+    program's spans on: the graph's report counts the markers launched
+    while it was captured (`capture_calls["span_mark"]`), and each of two
+    profiled replays runs exactly those markers, in capture order, opens
+    and closes paired."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmx_torch.train.graph import StepGraph
+    from cmx_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "_spans_on", True)
+    launched = []
+    mark = profiling._Span._mark
+
+    def logged(self, close, device):
+        if device is not None:
+            launched.append(f"cmx::span_{'close' if close else 'open'}_"
+                            f"{self.name}")
+        mark(self, close, device)
+
+    monkeypatch.setattr(profiling._Span, "_mark", logged)
+    state, step = _cmunet_state(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    corpus = torch.rand((8, 64, 64), generator=g, device=dev)
+    graph = StepGraph(step.body, lambda idx: corpus.index_select(0, idx), dev)
+    idxs = [torch.randperm(8, generator=g, device=dev)[:4] for _ in range(4)]
+    graph.step(state, idxs[0])  # eager
+    del launched[:]
+    graph.step(state, idxs[1])  # the capture, then the first replay
+    captured = list(launched)
+    assert graph.report["capture_calls"]["span_mark"] == len(captured)
+    depth = 0
+    for name in captured:
+        depth += 1 if "_open_" in name else -1
+        assert depth >= 0
+    assert depth == 0 and len(captured) > 100
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for idx in idxs[2:]:
+            graph.step(state, idx)
+        torch.cuda.synchronize()
+    marker = re.compile(r"cmx::span_(open|close)_\w+")
+    replayed = [marker.search(e.name).group(0) for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA
+         and marker.search(e.name)), key=lambda e: e.time_range.start)]
+    assert replayed == captured * 2

@@ -228,10 +228,13 @@ def test_split_step_equals_the_unsplit_step(task, monkeypatch):
     assert float(torch.stack(rows_a)[:, graph.names.index("nonfinite")]
                  .sum()) == 0.0
     _assert_states_equal(a, b)
-    assert graph.report == {"label": "step", "eager_steps": 2,
-                            "replays": 0, "capture_calls": {},
-                            "capture_collectives": {},
-                            "capture_s": None, "pool_bytes": None}
+    rep = dict(graph.report)
+    assert rep.pop("eager_s") > 0  # the first eager step's seconds
+    assert rep == {"label": "step", "eager_steps": 2,
+                   "replays": 0, "capture_calls": {},
+                   "capture_collectives": {},
+                   "capture_s": None, "pool_bytes": None,
+                   "kernel_load_s": 0.0, "first_replay_s": None}
 
 
 @pytest.mark.parametrize("task", ["spark", "moco"])
@@ -316,5 +319,5 @@ def test_launch_counts_name_every_kernel_wrapper():
     assert sorted(counts) == sorted([
         "flat_conv3x3_mask_stats", "flat_bwd_mega", "spark_loss_pallas",
         "spark_loss_bwd", "crop_resize_pallas", "bn_relu_mask_pallas",
-        "conv_stem_stats", "conv3x3_mask_stats", "bwd_mega"])
+        "conv_stem_stats", "conv3x3_mask_stats", "bwd_mega", "span_mark"])
     assert all(isinstance(v, int) for v in counts.values())
