@@ -1341,6 +1341,14 @@ class _Tee:
         self.stream.flush()
 
 
+def wrapper_calls(calls: dict) -> dict:
+    """A graph report's capture calls of the port's kernel wrappers: its
+    `capture_calls` less the library convolutions' counts by layout
+    (cmx_torch.models.blocks.LIBRARY_CONV_CALLS)."""
+    return {n: c for n, c in calls.items()
+            if not n.startswith("library_conv_")}
+
+
 def graph_launches(wrappers: dict, since: int, per_step: dict,
                    label: str) -> dict:
     """Each kernel's launches in the runs since cmx_torch.train.graph's
@@ -1353,10 +1361,11 @@ def graph_launches(wrappers: dict, since: int, per_step: dict,
     counts = {n: fn.launches for n, fn in wrappers.items()}
     want = {n: c for n, c in per_step.items() if c}
     for rep in REPORTS[since:]:
-        if rep["capture_calls"] != want:
-            fail(f"{label}: a graph captured the calls "
-                 f"{rep['capture_calls']}, not one step's {want}")
-        for n, c in rep["capture_calls"].items():
+        calls = wrapper_calls(rep["capture_calls"])
+        if calls != want:
+            fail(f"{label}: a graph captured the calls {calls}, not one "
+                 f"step's {want}")
+        for n, c in calls.items():
             counts[n] += c * (rep["replays"] - 1)
     return counts
 
@@ -3482,7 +3491,7 @@ def ftdp_cli(work: Path, encoder, data_dir: str, per_step: dict) -> dict:
     # launches: eager calls + capture calls x replays (graph_launches)
     launches = dict(run["calls"])
     for rep in run["reports"]:
-        for n, c in rep["capture_calls"].items():
+        for n, c in wrapper_calls(rep["capture_calls"]).items():
             launches[n] += c * (rep["replays"] - 1)
     n_ft = run["n_finetune"]
     folds = [len(tr) for tr, _ in KFold(3, random_state=42).split(
@@ -3848,7 +3857,7 @@ def graph_phase(steps: int = GRAPH_STEPS, only=None) -> list:
                       f"{NHWC_PER_STEP}); wrapper calls at the capture "
                       f"{r['capture_calls']}", flush=True)
                 if counted != NHWC_PER_STEP or \
-                        r["capture_calls"] != NHWC_PER_STEP:
+                        wrapper_calls(r["capture_calls"]) != NHWC_PER_STEP:
                     fail(f"GRAPH {label}: the replayed step did not run K6 "
                          "1, K7 3, K8 3 and K3 1 + 1")
             gc.collect()
@@ -3958,7 +3967,7 @@ def bnv_phase(per_step: dict, flat_loss=None) -> dict:
                   f"relative var error {worst[1][1]:.3e} at {worst[0]} "
                   f"({worst[1][0]}^2); step_ms eager={rg['eager_ms']:.3f} "
                   f"graph={rg['graph_ms']:.3f}", flush=True)
-            if calls != dict(per_step) or rg["calls_eager"] != dict(per_step):
+            if calls != dict(per_step) or wrapper_calls(rg["calls_eager"]) != dict(per_step):
                 fail(f"BNV {variant}: the step's kernel calls {calls} / "
                      f"{rg['calls_eager']} are not phase 1's {dict(per_step)}")
             in_fused = [n for n in taken if n.startswith(fused_bns)]

@@ -1,8 +1,21 @@
 """UNet building blocks (port of cmx/models/blocks.py).
 
-Activations are NCHW inside the port. Parameters keep cmx's names (a conv's
-`kernel` and `bias`, a norm's `scale` and `bias`, running `mean` and `var`
-buffers) so cmx_torch.ckpt.checkpoint maps a flax tree mechanically; conv
+Activations are NCHW in shape; their memory layout follows the device
+(`library_layout`). On a card the activations between library convolutions
+are channels-last, the layout cuDNN's bf16 tensor-core convolutions read
+and write, so cuDNN transposes none of them (it still pads a one- or
+two-channel operand through its transpose kernel); the masks, norms, ReLU,
+max-pool, concatenation and head keep that layout. The flat fused
+DoubleConv (K1/K2) reads and writes channel-major tensors, and the layout
+changes once at each of its boundaries: a library convolution converts the
+pooled output of a fused block, an UpBlock converts the skip of a fused
+block, and torch.cat reads a channels-last upsample into a fused block's
+channel-major concatenation. On the CPU every activation stays contiguous
+NCHW, as cmx's parity tests hold the port.
+
+Parameters keep cmx's names (a conv's `kernel` and `bias`, a norm's `scale`
+and `bias`, running `mean` and `var` buffers) so
+cmx_torch.ckpt.checkpoint maps a flax tree mechanically; conv
 kernels are stored OIHW (torch's layout) and mapped from flax's HWIO there.
 bf16 compute, fp32 parameters and statistics, as in cmx. Training mode
 (`module.train()`) is cmx's use_running_average=False. `run_block` is
@@ -40,6 +53,66 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
+# Library convolution calls by the layout they ran in (Conv, ConvTranspose),
+# counted at the call as the kernel wrappers count theirs; read through
+# cmx_torch.train.graph.launch_counts.
+LIBRARY_CONV_CALLS = {"library_conv_channels_last": 0,
+                      "library_conv_channels_first": 0}
+
+
+def library_layout(x: torch.Tensor) -> torch.memory_format:
+    """The memory format of the activations around the library
+    convolutions: channels-last on a card, where cuDNN runs its bf16
+    tensor-core convolutions in NHWC and would otherwise transpose every
+    operand in and every result out; contiguous NCHW on the CPU."""
+    return torch.channels_last if x.is_cuda else torch.contiguous_format
+
+
+class _Relayout(torch.autograd.Function):
+    """`t` cast to `dtype` in `memory_format`, in one copy; its gradient
+    comes back in t's own dtype and layout (autograd's own cast would keep
+    it in the new layout). A conv kernel's gradient so comes back
+    contiguous, as the all-reduce, the norm, the clip and the optimizer
+    take it; an activation's, in the layout of the code that made it, whose
+    backward would otherwise mix two layouts."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dtype: torch.dtype,
+                memory_format: torch.memory_format):
+        ctx.dtype = t.dtype
+        ctx.layout = (torch.contiguous_format if t.is_contiguous()
+                      else torch.channels_last)
+        return t.to(dtype, memory_format=memory_format)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(ctx.dtype, memory_format=ctx.layout), None, None
+
+
+def _in_layout(t: torch.Tensor, dtype: torch.dtype,
+               memory_format: torch.memory_format) -> torch.Tensor:
+    """t cast to `dtype` and, where it is not already, converted to
+    `memory_format` (a 1-channel NCHW tensor already is channels-last)."""
+    if t.is_contiguous(memory_format=memory_format):
+        return t.to(dtype)
+    return _Relayout.apply(t, dtype, memory_format)
+
+
+def _conv_operands(x: torch.Tensor, kernel: torch.Tensor,
+                   dtype: torch.dtype) -> tuple:
+    """x and the kernel of a library convolution, cast to `dtype` in the
+    layout `library_layout` gives. The kernel is converted always, which
+    makes cuDNN take its NHWC path even for a 1-channel input, whose layout
+    is ambiguous; a channel-major x (the pooled output of a flat fused
+    block) is converted here, once each way."""
+    if library_layout(x) == torch.channels_last:
+        LIBRARY_CONV_CALLS["library_conv_channels_last"] += 1
+        return (_in_layout(x, dtype, torch.channels_last),
+                _Relayout.apply(kernel, dtype, torch.channels_last))
+    LIBRARY_CONV_CALLS["library_conv_channels_first"] += 1
+    return x.to(dtype), kernel.to(dtype)
+
+
 class Conv(nn.Module):
     """flax nn.Conv(features, (k, k), padding SAME) with fp32 parameters,
     computed in `dtype` (input, kernel and bias cast, as flax does);
@@ -64,8 +137,8 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel.shape[-1]
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.kernel.to(self.dtype), bias,
-                        padding=k // 2)
+        x, kernel = _conv_operands(x, self.kernel, self.dtype)
+        return F.conv2d(x, kernel, bias, padding=k // 2)
 
 
 class ConvTranspose(nn.Module):
@@ -92,9 +165,9 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel.shape[-1]
-        return F.conv_transpose2d(x.to(self.dtype), self.kernel.to(self.dtype),
-                                  self.bias.to(self.dtype), stride=2,
-                                  padding=(k - 2) // 2)
+        x, kernel = _conv_operands(x, self.kernel, self.dtype)
+        return F.conv_transpose2d(x, kernel, self.bias.to(self.dtype),
+                                  stride=2, padding=(k - 2) // 2)
 
 
 class PixelShuffleUpsample2x(ConvTranspose):
@@ -281,9 +354,11 @@ class DoubleConv(nn.Module):
     cmx/models/blocks.py:233-241) the stage runs through the fused kernels,
     with naive moments as in cmx, in the impl that
     cmx_torch.ops.fused_conv.FUSED_IMPL names at forward time: "flat" through
-    FlatDoubleConv (channel-major), "nhwc" through FusedDoubleConv
-    (channels-last; its output is returned as a channels_last NCHW view).
-    The parameter tree is the same either way."""
+    FlatDoubleConv (channel-major: a channels-last input is converted, and
+    the output is channel-major), "nhwc" through FusedDoubleConv
+    (channels-last: a channels-last input is a free view, and its output is
+    returned as a channels_last NCHW view). The parameter tree is the same
+    either way."""
 
     def __init__(self, cin: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, fused: bool = False):
@@ -319,7 +394,8 @@ class DoubleConv(nn.Module):
                 from cmx_torch.ops import fused_conv_flat as ff
 
                 outf, (mean0, var0, mean1, var1) = ff.flat_double_conv(
-                    x.to(self.dtype).reshape(B, cin, H * W),
+                    _in_layout(x, self.dtype, torch.contiguous_format
+                               ).reshape(B, cin, H * W),
                     m.reshape(B, 1, H * W), *params, H, W)
                 out = outf.reshape(B, -1, H, W)
             elif impl == "nhwc":
@@ -413,7 +489,21 @@ class UpBlock(nn.Module):
             x = self.up(x)
         else:
             x = bilinear_upsample_2x(x)
-        x = torch.cat([x, skip.to(x.dtype)], dim=1)
+        # the concatenation in the layout its DoubleConv reads: channel-major
+        # for the flat fused kernels (torch.cat reads a channels-last x
+        # through its strides), else the library convolutions' layout,
+        # which the NHWC fused kernels read as a view (a channel-major skip,
+        # from a flat fused block, is converted). Nothing holds the
+        # operands past the concatenation.
+        b, c, h, w = x.shape
+        cat = x.new_empty((b, c + skip.shape[1], h, w), device="meta")
+        fmt = library_layout(x)
+        if (fmt == torch.channels_last and fc.FUSED_IMPL == "flat"
+                and self.double_conv.use_fused(cat)):
+            fmt = torch.contiguous_format
+        else:
+            x = _in_layout(x, x.dtype, fmt)
+        x = torch.cat([x, _in_layout(skip, x.dtype, fmt)], dim=1)
         return self.double_conv(x)
 
 

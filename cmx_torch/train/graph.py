@@ -41,7 +41,9 @@ Launch accounting: a kernel wrapper counts its launches when it is called,
 so its count sees the eager steps and the capture, never a replay. Each
 graph's report (`StepGraph.report`, also appended to `REPORTS`) holds the
 wrapper calls made during its capture (`capture_calls`; with spans on,
-`span_mark` counts the span markers the graph holds), the collectives it
+`span_mark` counts the span markers the graph holds, and
+`library_conv_channels_last` / `library_conv_channels_first` count its
+library convolutions by layout), the collectives it
 captured (`capture_collectives`, from `mesh.counts`), its `replays`, its
 `eager_steps`, `capture_s` and the bytes its pool holds: a kernel ran
 eager calls + capture_calls x replays times.
@@ -78,7 +80,10 @@ class GraphCaptureError(RuntimeError):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by the wrapper's name."""
+    """Every kernel wrapper's launch count, by the wrapper's name, and the
+    library convolution calls by layout (`library_conv_channels_last`,
+    `library_conv_channels_first`: cmx_torch.models.blocks)."""
+    from cmx_torch.models import blocks
     from cmx_torch.ops import (fused_conv, fused_conv_flat, pallas_crop,
                                pallas_ops)
 
@@ -88,7 +93,8 @@ def launch_counts() -> Dict[str, int]:
            pallas_ops.bn_relu_mask_pallas, fused_conv.conv_stem_stats,
            fused_conv.conv3x3_mask_stats, fused_conv.bwd_mega,
            profiling.span_mark)
-    return {fn.__name__: fn.launches for fn in fns}
+    return {**{fn.__name__: fn.launches for fn in fns},
+            **blocks.LIBRARY_CONV_CALLS}
 
 
 def _culprit(exc: BaseException) -> str:

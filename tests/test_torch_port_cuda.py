@@ -28,7 +28,9 @@ variants fused against unfused at the bf16 margins (loss 2e-2, BN stats
 (running stats rel 1e-5, bf16 outputs and gradients rel 1e-2), and the
 SparK graph under shift_max and two_pass bit for bit. With the program's
 spans on, a captured CM-UNet step's replays run its span markers in
-capture order.
+capture order. A captured bf16 CM-UNet step runs every library
+convolution channels-last; cuDNN transposes only its one- and two-channel
+operands.
 """
 
 import numpy as np
@@ -615,17 +617,17 @@ def test_nhwc_wrappers_refuse_what_the_kernels_do_not_take(dev):
         po.bn_relu_mask_pallas(x.float(), vec, vec, mask.cpu())
 
 
-def _cmunet_state(device):
-    """The CM-UNet task at full width, view 32, fp32, AdamW on the preset's
-    warm-up (lr 0 at the first step), weights and extra from seeds, on
-    `device`."""
+def _cmunet_state(device, dtype=torch.float32):
+    """The CM-UNet task at full width, view 32, computing in `dtype`, AdamW
+    on the preset's warm-up (lr 0 at the first step), weights and extra
+    from seeds, on `device`."""
     from cmx_torch.ssl.cmunet import CMUNetOnline, make_cmunet_task
     from cmx_torch.train.optim import make_optimizer
     from cmx_torch.train.schedules import warmup_cosine
     from cmx_torch.train.state import TrainState
     from cmx_torch.train.trainer import make_train_step
 
-    model = CMUNetOnline(torch.float32, 32)
+    model = CMUNetOnline(dtype, 32)
     model.reset_parameters(torch.Generator().manual_seed(0))
     model = model.to(device)
     task, _ = make_cmunet_task(model, view_size=32, augment=False)
@@ -998,9 +1000,11 @@ def _graph_genesis(dev):
 
 @pytest.mark.parametrize("case,calls", [
     ("spark", {"flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
-               "spark_loss_pallas": 1, "spark_loss_bwd": 1}),
-    ("moco", {"crop_resize_pallas": 2}),
-    ("genesis", {"flat_conv3x3_mask_stats": 8, "flat_bwd_mega": 8})])
+               "spark_loss_pallas": 1, "spark_loss_bwd": 1,
+               "library_conv_channels_last": 19}),
+    ("moco", {"crop_resize_pallas": 2, "library_conv_channels_last": 20}),
+    ("genesis", {"flat_conv3x3_mask_stats": 8, "flat_bwd_mega": 8,
+                 "library_conv_channels_last": 15})])
 def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
     """A capture and 3 replays against 4 eager steps from the same state,
     weights and batches (reduced widths, bf16, 64^2 or 48^2; FUSED_MIN_HW
@@ -1008,7 +1012,10 @@ def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
     every parameter, BN buffer, optimizer state, `extra` tensor and metric
     bit for bit; the capture called the kernel wrappers one step's worth
     (SparK fused flat with K3: K1 4, K2 4, K3 1 + 1; MoCo: K4 2; Genesis:
-    K1 8, K2 8)."""
+    K1 8, K2 8) and its library convolutions all ran channels-last (SparK
+    the encoder's three unfused levels and the unfused decoder: 19; MoCo
+    two encoders: 20; Genesis three unfused levels of each half, four
+    up-convs and the head: 15)."""
     monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     make = {"spark": _graph_spark, "moco": _graph_moco,
@@ -1033,7 +1040,8 @@ def test_graph_replays_equal_eager_steps_under_bn_variants(dev, monkeypatch,
     rep = _graph_against_eager(dev, lambda: _graph_spark(dev))
     assert rep["capture_calls"] == {
         "flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
-        "spark_loss_pallas": 1, "spark_loss_bwd": 1}
+        "spark_loss_pallas": 1, "spark_loss_bwd": 1,
+        "library_conv_channels_last": 19}
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
@@ -1187,3 +1195,65 @@ def test_graph_replays_the_span_markers_in_capture_order(dev, monkeypatch):
         (e for e in prof.events() if e.device_type == DeviceType.CUDA
          and marker.search(e.name)), key=lambda e: e.time_range.start)]
     assert replayed == captured * 2
+
+
+def test_graph_runs_cmunet_convolutions_channels_last(dev):
+    """A CM-UNet step (full width, bf16, view 32, batch 4) on the card.
+    Its eager first step, profiled: cuDNN's layout transposes (nchwToNhwc,
+    nhwcToNchw) come only from convolutions with an operand of one or two
+    channels (the stem's input, the heads' outputs), which cuDNN pads to
+    its NHWC kernels' channel multiple in either layout. The captured step
+    holds 46 library convolutions, all channels-last (`capture_calls`: the
+    online encoder's 10, two decoders' 13 each, the target encoder's 10);
+    its replays run cuDNN's convolutions and no other transposes. An eager
+    backward's gradients come back contiguous in their parameters'
+    shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmx_torch.train.graph import StepGraph
+
+    def transposes(names):
+        return [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+
+    state, step = _cmunet_state(dev, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(3)
+    corpus = torch.rand((8, 64, 64), generator=g, device=dev)
+    graph = StepGraph(step.body, lambda idx: corpus.index_select(0, idx), dev)
+    idxs = [torch.randperm(8, generator=g, device=dev)[:4] for _ in range(4)]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, record_shapes=True) as prof:
+        graph.step(state, idxs[0])  # eager
+        torch.cuda.synchronize()
+    eager = []
+    for ev in prof.profiler.function_events:
+        for k in transposes([k.name for k in ev.kernels]):
+            op = ev
+            while op is not None and not (op.name.startswith("aten::")
+                                          and "convolution" in op.name):
+                op = op.cpu_parent
+            assert op is not None, (k, ev.name)
+            assert any(len(s) == 4 and s[1] <= 2 for s in op.input_shapes), \
+                (k, op.name, op.input_shapes)
+            eager.append(k)
+    graph.step(state, idxs[1])  # the capture, then the first replay
+    assert graph.report["capture_calls"] == {"library_conv_channels_last": 46}
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for idx in idxs[2:]:
+            rows = graph.step(state, idx)
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(rows).all())
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert any(("cudnn" in n or "xmma" in n or "conv" in n.lower())
+               for n in names), sorted(set(names))[:20]
+    assert set(transposes(names)) <= set(eager)
+    # an eager backward on the card: every gradient contiguous, in shape
+    active = (torch.rand((4, 32, 32), generator=g, device=dev) > 0.5).float()
+    pix, pred, _ = state.model(corpus[:4, :32, :32], active)
+    names, params = zip(*state.model.named_parameters())
+    grads = torch.autograd.grad(pix.square().mean() + pred.square().mean(),
+                                params)
+    for n, p, gr in zip(names, params, grads):
+        assert gr.is_contiguous() and gr.shape == p.shape, n

@@ -319,5 +319,6 @@ def test_launch_counts_name_every_kernel_wrapper():
     assert sorted(counts) == sorted([
         "flat_conv3x3_mask_stats", "flat_bwd_mega", "spark_loss_pallas",
         "spark_loss_bwd", "crop_resize_pallas", "bn_relu_mask_pallas",
-        "conv_stem_stats", "conv3x3_mask_stats", "bwd_mega", "span_mark"])
+        "conv_stem_stats", "conv3x3_mask_stats", "bwd_mega", "span_mark",
+        "library_conv_channels_last", "library_conv_channels_first"])
     assert all(isinstance(v, int) for v in counts.values())
