@@ -4,19 +4,26 @@ steps against the reference's on the same weights, batches and seeds.
 A reading of three steps holds:
   losses   each step's loss;
   grads    each parameter's gradient norm at step 1, as the optimizer got
-           it (after the clip); the program's is worked out from its
-           optimizer state after step 1: Adam's first moment is
-           (1 - b1) g;
+           it (after the clip, before any weight decay); the program's is
+           worked out from its optimizer state after step 1, by the
+           optimizer's kind (perfbench.harness.READERS): lamb and adamw
+           from Adam's first moment, (1 - b1) g; sgd from its momentum
+           trace, g + wd p with wd p on the decayed leaves only, so the
+           program's parameters and weight decay before the step are read
+           too;
   vectors  the gradients themselves at steps 1 and 3, by step index (0,
-           2): the program's from its first moment after steps 1, 2 and
-           3, g_3 = (m_3 - b1 m_2) / (1 - b1); step 3 is the first that a
-           graph cell replays, as its window does;
+           2): the program's from its state after steps 1, 2 and 3,
+           g_3 = (m_3 - b1 m_2) / (1 - b1) for Adam's moment,
+           g_3 = t_3 - mu t_2 - wd p for SGD's trace, p as step 3 read
+           it; step 3 is the first that a graph cell replays, as its
+           window does;
   change   each parameter's norm of (after step 3 - initial);
   stats    each running statistic's norm of (after step 3 - initial), the
            target's under "target.";
-  target   each EMA target parameter's norm of (after step 3 - initial)
-           (CM-UNet, whose target starts at a draw of its own), for the
-           parameters drawn apart from the online ones.
+  target   each momentum network's parameter's norm of (after step 3 -
+           initial) (CM-UNet's EMA target, MoCo's key encoder: the one
+           module the task's `extra` holds), for the parameters drawn
+           apart from the online ones.
 The numbers compared, each by the worst leaf, as a gap of norms (not the
 norm of a difference) over the reference's norm of that leaf or the median
 leaf's, whichever is larger:
@@ -45,7 +52,8 @@ leaf's, whichever is larger:
   change_gap   over the same parameters (Adam moves such a bias by its
                rounding alone);
   stats_gap    over every running statistic;
-  target_gap   over every target parameter (cells with an EMA target).
+  target_gap   over every target parameter (cells with a momentum
+               network).
 A cell's limits name the numbers it compares; one with no limit is printed
 and not judged (PERF.md gives why).
 """

@@ -4,8 +4,8 @@ the comparison with the plain reference.
 Set-up builds the program as the pretrain CLI does (cmx_torch.cli.pretrain:
 build_task, the preset's schedules and optimizer, the train state), with
 the benchmark's own weights, made on the card from the seed and loaded
-into the model (and into the target for CM-UNet, with the benchmark's
-reduce kernel); the benchmark's synthetic corpus; and the step runner of
+into the model (and into the task's `extra`: CM-UNet's target and reduce
+kernel); the benchmark's synthetic corpus; and the step runner of
 the cell:
   graph  make_device_feed's scan_run: the corpus resident on the card, one
          row gather and one replay of the captured CUDA graph a step;
@@ -14,7 +14,12 @@ the cell:
 The first three steps run through that same runner on rows that all
 differ: the first runs eagerly (and fills every lazy cache), the second is
 captured, the third replayed. The program's reading of those steps is
-taken, then the window runs from step 4.
+taken, then the window runs from step 4. The gradients of that reading come
+from the optimizer's own state, read by its kind (READERS): Adam's first
+moment for lamb and adamw, the momentum trace for sgd; a run of any other
+optimizer is refused before set-up. A task's momentum network (CM-UNet's
+EMA target, MoCo's key encoder) is the one module its `extra` holds,
+whatever the key; its parameters and buffers are read under "target.".
 
 The window opens and closes on a device synchronise and keeps the host at
 most two steps ahead of the device. Every metric reads the context this
@@ -32,7 +37,7 @@ import math
 import os
 import sys
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +82,63 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class Refused(Exception):
+    """A cell the harness cannot read: the run names why and prints no
+    result."""
+
+
+def momentum_net(extra: Any) -> Optional[torch.nn.Module]:
+    """The one module a task's `extra` holds (CM-UNet's `target_model`,
+    MoCo's `key_model`), or None; a second one is refused."""
+    if not isinstance(extra, dict):
+        return None
+    keys = sorted(k for k, v in extra.items()
+                  if isinstance(v, torch.nn.Module))
+    if len(keys) > 1:
+        raise Refused(f"the task's extra holds {len(keys)} modules {keys}; "
+                      "the harness reads one momentum network")
+    return extra[keys[0]] if keys else None
+
+
+def _host(tensors) -> List[torch.Tensor]:
+    return [t.detach().to("cpu", torch.float32, copy=True) for t in tensors]
+
+
+def adam_gradients(tx, now, prev, before) -> List[torch.Tensor]:
+    """lamb, adamw: Adam's first moment m_i = b1 m_(i-1) + (1 - b1) g_i,
+    so g_i = (m_i - b1 m_(i-1)) / (1 - b1)."""
+    b1 = tx.b1
+    return [(m if prev is None else m - b1 * prev[j]) / (1 - b1)
+            for j, m in enumerate(now)]
+
+
+def sgd_before(tx) -> Tuple[List[torch.Tensor], float]:
+    """sgd, before a step: its parameters as the update reads them and its
+    weight decay at the step's count, on the host."""
+    wd = tx.weight_decay  # a value or a schedule of the step count
+    return _host(tx.params), float(wd(tx.count) if callable(wd) else wd)
+
+
+def sgd_gradients(tx, now, prev, before) -> List[torch.Tensor]:
+    """sgd: the trace t_i = g_i + wd p + mu t_(i-1), wd p on the leaves its
+    decay mask selects, so g_i = t_i - mu t_(i-1) - wd p."""
+    params, wd = before
+    mu = tx.momentum
+    out = []
+    for j, t in enumerate(now):
+        g = t if prev is None else t - mu * prev[j]
+        out.append(g - wd * params[j] if tx.decay[j] else g)
+    return out
+
+
+# optimizer kind -> (the state that holds the gradient, what is read before
+# a compared step or None, the gradients from the state after the step and
+# after the step before)
+READERS = {"lamb": ("mu", None, adam_gradients),
+           "adamw": ("mu", None, adam_gradients),
+           "sgd": ("trace", sgd_before, sgd_gradients)}
+
+
 def program_config(cell: Dict[str, Any]):
     """The program's Config: the preset, then the configuration's
     settings and the cell's overrides."""
@@ -108,6 +170,12 @@ class Program:
         self.batch = int(work["batch"])
         cfg = program_config(cell)
         cfg.train.seed = seed
+        kind = cfg.optim.name.lower()
+        if kind not in READERS:
+            raise Refused(f"the harness cannot read the gradient from the "
+                          f"state of optimizer {kind!r} (it reads "
+                          f"{', '.join(READERS)})")
+        self.reader = READERS[kind]
         dtype = (torch.bfloat16 if cfg.model.dtype == "bfloat16"
                  else torch.float32)
         ref = cells.reference_module(conf["task"])
@@ -122,9 +190,10 @@ class Program:
             extra = task.init_extra(torch.Generator(device=dev).manual_seed(
                 (seed + 1) % (2 ** 63)))
             own = dict(extra)
-            if "target_model" in extra:
+            net = momentum_net(extra)
+            if net is not None:
                 own.update({"target." + n: p for n, p in
-                            extra["target_model"].named_parameters()})
+                            net.named_parameters()})
             with torch.no_grad():
                 for name, _, _ in espec:
                     own[name].copy_(made[name])
@@ -203,10 +272,9 @@ class Program:
 
     def named_stats(self) -> Dict[str, torch.Tensor]:
         out = dict(self.model.named_buffers())
-        extra = self.state.extra
-        if isinstance(extra, dict) and "target_model" in extra:
-            out.update({"target." + k: v for k, v in
-                        extra["target_model"].named_buffers()})
+        net = momentum_net(self.state.extra)
+        if net is not None:
+            out.update({"target." + k: v for k, v in net.named_buffers()})
         return out
 
     @torch.no_grad()
@@ -218,10 +286,8 @@ class Program:
         stats0 = dict(self.init["stats"])
         stats0.update({"target." + k: v
                        for k, v in self.init["stats"].items()})
-        extra = self.state.extra
-        targets = (dict(extra["target_model"].named_parameters())
-                   if isinstance(extra, dict) and "target_model" in extra
-                   else {})
+        net = momentum_net(self.state.extra)
+        targets = dict(net.named_parameters()) if net is not None else {}
         init_t = self.init["extra"]
         return {
             "params": {n: float(norm(params[n].float() - self.init["params"][n]
@@ -234,22 +300,24 @@ class Program:
 
     def warm(self) -> check.Reading:
         """The first three steps, and the program's reading of them. The
-        gradients of steps 1 and 3 come from Adam's first moment,
-        m_i = b1 m_(i-1) + (1 - b1) g_i, copied to the host after steps 1
-        to 3 (off the device, so they leave its peak as it was)."""
+        gradients of steps 1 and 3 come from the optimizer's state, copied
+        to the host after steps 1 to 3 (off the device, so they leave its
+        peak as it was), by the optimizer's kind (READERS): Adam's first
+        moment for lamb and adamw; for sgd the momentum trace, with the
+        parameters and the weight decay as steps 1 and 3 read them, copied
+        before those steps."""
         names = [n for n, _ in self.model.named_parameters()]
-        b1 = self.tx.b1
-        losses, moments, vectors = [], {}, {}
+        state, read_before, gradients = self.reader
+        losses, states, vectors = [], {}, {}
         for i in range(WARM_STEPS):
+            before = (read_before(self.tx) if read_before is not None
+                      and i in check.GRAD_STEPS else None)
             losses.append(self.step(i)["loss"])
             if i in check.GRAD_STEPS or i + 1 in check.GRAD_STEPS:
-                moments[i] = [m.detach().to("cpu", torch.float32, copy=True)
-                              for m in self.tx.mu]
+                states[i] = _host(getattr(self.tx, state))
             if i in check.GRAD_STEPS:
-                prev = moments.get(i - 1)
-                vectors[i] = {
-                    n: (m if prev is None else m - b1 * prev[j]) / (1 - b1)
-                    for j, (n, m) in enumerate(zip(names, moments[i]))}
+                vectors[i] = dict(zip(names, gradients(
+                    self.tx, states[i], states.get(i - 1), before)))
         grads = {n: float(torch.linalg.vector_norm(g))
                  for n, g in vectors[0].items()}
         moved = self._changes(names)
@@ -362,7 +430,11 @@ def run(name: str, seed: int, seconds: float, trace: bool,
             return None
         torch.cuda.reset_peak_memory_stats()
 
-    prog = Program(cell, seed, dev)
+    try:
+        prog = Program(cell, seed, dev)
+    except Refused as e:
+        print(f"{name}: {e}", file=err)
+        return None
     warm = prog.warm()
     prog.marks.append(("warm steps", time.time()))
     win = prog.window(seconds)

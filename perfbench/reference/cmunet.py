@@ -95,12 +95,13 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 class Step:
-    """Online and target state, AdamW, and the step on a batch."""
+    """Online and target state, the configuration's optimizer, and the
+    step on a batch."""
 
     def __init__(self, cfg: dict, params: Dict[str, torch.Tensor],
                  stats: Dict[str, torch.Tensor], extra: Dict[str, torch.Tensor],
                  precision: str):
-        from perfbench.reference.optim import Optimizer, schedule
+        from perfbench.reference.optim import from_settings
 
         self.cfg, self.precision = cfg, precision
         self.params = {k: v.clone().requires_grad_(True)
@@ -109,9 +110,7 @@ class Step:
         self.target = {k: extra["target." + k].clone() for k in params}
         self.target_stats = {k: v.clone() for k, v in stats.items()}
         self.reduce = extra["reduce_kernel"][0, 0].clone()
-        s = cfg["settings"]
-        self.opt = Optimizer(s["optim.name"], self.params, schedule(cfg),
-                             s["optim.clip_norm"])
+        self.opt = from_settings(cfg, self.params)
 
     def loss_and_grads(self, imgs: torch.Tensor, gen: torch.Generator):
         s = self.cfg["settings"]

@@ -1,10 +1,14 @@
-"""The reference optimizers and schedules: LAMB and AdamW as optax defines
-them, in float32, with Python floats for the schedules.
+"""The reference optimizers and schedules: LAMB, AdamW and SGD with
+momentum as optax defines them, in float32, with Python floats for the
+schedules.
 
-Both start with the gradients clipped to a global norm, then Adam's
-bias-corrected moments; weight decay adds wd * p to the direction of every
-kernel of two or more dimensions that is not a mask token; LAMB scales each
-leaf's direction by |p| / |direction| (1 where either is 0).
+Each starts with the gradients clipped to a global norm. LAMB and AdamW
+take Adam's bias-corrected moments; weight decay adds wd * p to the
+direction of every kernel of two or more dimensions that is not a mask
+token; LAMB scales each leaf's direction by |p| / |direction| (1 where
+either is 0). SGD is optax.chain(add_decayed_weights(wd, mask),
+trace(momentum, nesterov=False), scale(-lr)): wd * p added to the gradient
+of the same kernels, the trace t <- g + momentum * t, the step -lr * t.
 """
 
 from __future__ import annotations
@@ -34,18 +38,26 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 class Optimizer:
-    """`kind` "lamb" (eps 1e-6) or "adamw" (eps 1e-8); `hyper(step)` gives
-    (lr, wd) for the update that follows `step` earlier ones."""
+    """`kind` "lamb" (eps 1e-6), "adamw" (eps 1e-8) or "sgd" (with
+    `momentum`); `hyper(step)` gives (lr, wd) for the update that follows
+    `step` earlier ones."""
 
     def __init__(self, kind: str, params: Dict[str, torch.Tensor], hyper,
                  clip_norm: Optional[float], b1: float = 0.9,
-                 b2: float = 0.999):
-        if kind not in ("lamb", "adamw"):
+                 b2: float = 0.999, momentum: Optional[float] = None):
+        if kind not in ("lamb", "adamw", "sgd"):
             raise ValueError(f"unknown optimizer {kind!r}")
+        if kind == "sgd" and momentum is None:
+            raise ValueError("sgd needs optim.momentum in the "
+                             "configuration's settings")
         self.kind, self.hyper, self.clip_norm = kind, hyper, clip_norm
+        self.count = 0
+        if kind == "sgd":
+            self.momentum = momentum
+            self.trace = {k: torch.zeros_like(p) for k, p in params.items()}
+            return
         self.b1, self.b2 = b1, b2
         self.eps = 1e-6 if kind == "lamb" else 1e-8
-        self.count = 0
         self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
 
@@ -62,6 +74,12 @@ class Optimizer:
         """Update `params` in place with gradients already clipped."""
         lr, wd = self.hyper(self.count)
         self.count += 1
+        if self.kind == "sgd":
+            for k, p in params.items():
+                g = grads[k] + wd * p if decays(k, p) else grads[k]
+                self.trace[k] = g + self.momentum * self.trace[k]
+                p.sub_(lr * self.trace[k])
+            return
         bc1 = 1 - self.b1 ** self.count
         bc2 = 1 - self.b2 ** self.count
         for k, p in params.items():
@@ -97,3 +115,11 @@ def schedule(cfg: dict):
         return warmup_cosine(peak, total, warm, step), wd
 
     return hyper
+
+
+def from_settings(cfg: dict, params: Dict[str, torch.Tensor]) -> Optimizer:
+    """The optimizer a configuration's settings state over `params`:
+    optim.name, optim.clip_norm, optim.momentum (sgd) and schedule(cfg)."""
+    s = cfg["settings"]
+    return Optimizer(s["optim.name"], params, schedule(cfg),
+                     s["optim.clip_norm"], momentum=s.get("optim.momentum"))

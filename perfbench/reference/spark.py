@@ -3,7 +3,8 @@ Convolutional Networks: Sparse and Hierarchical Masked Modeling", ICLR
 2023, with the full UNet decoder of the CM-UNet repository's Spark
 pretraining): the masked UNet encoder, densify (masked batch norm, then a
 learned token at every hidden cell), the UNet decoder with skips, and the
-per-patch-normalised L2 loss on the hidden patches; LAMB.
+per-patch-normalised L2 loss on the hidden patches; the configuration's
+optimizer (LAMB as the source trains it).
 
 `settings` are the configuration file's program settings (dotted names)
 with the model's widths beside them; see perfbench/configs.
@@ -92,21 +93,20 @@ def loss(rec: torch.Tensor, imgs: torch.Tensor, active: torch.Tensor,
 
 
 class Step:
-    """The reference's state (parameters, running statistics, LAMB) and
-    its step on a batch, with the step's draws made again from the seed."""
+    """The reference's state (parameters, running statistics, the
+    configuration's optimizer) and its step on a batch, with the step's
+    draws made again from the seed."""
 
     def __init__(self, cfg: dict, params: Dict[str, torch.Tensor],
                  stats: Dict[str, torch.Tensor], extra: Dict[str, torch.Tensor],
                  precision: str):
-        from perfbench.reference.optim import Optimizer, schedule
+        from perfbench.reference.optim import from_settings
 
         self.cfg, self.precision = cfg, precision
         self.params = {k: v.clone().requires_grad_(True)
                        for k, v in params.items()}
         self.stats = {k: v.clone() for k, v in stats.items()}
-        s = cfg["settings"]
-        self.opt = Optimizer(s["optim.name"], self.params, schedule(cfg),
-                             s["optim.clip_norm"])
+        self.opt = from_settings(cfg, self.params)
 
     def loss_and_grads(self, imgs: torch.Tensor, gen: torch.Generator):
         s = self.cfg["settings"]

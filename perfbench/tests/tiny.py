@@ -93,3 +93,24 @@ def patch_spark_widths(monkeypatch) -> None:
     monkeypatch.setattr(spark, "SparKModel", functools.partial(
         spark.SparKModel, widths=TINY_WIDTHS,
         bottleneck_width=TINY_BOTTLENECK))
+
+
+def add_cell(root: str, name: str, base: str, overrides: dict) -> None:
+    """Cell `name` in `root`: the tiny cell `base` with program settings
+    `overrides` over its own, added as a file and an entry."""
+    work_dir = os.path.join(root, "perfbench", "workloads")
+    with open(os.path.join(work_dir, base + ".json")) as f:
+        cell = json.load(f)
+    cell["overrides"] = dict(cell["overrides"], **overrides)
+    with open(os.path.join(work_dir, name + ".json"), "w") as f:
+        json.dump(cell, f)
+    path = os.path.join(root, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    entry = next(w for w in bench["workloads"] if w["name"] == base)
+    bench["workloads"].append(dict(entry, name=name, traffic=name))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if base in m.get("workloads", []):
+            m["workloads"].append(name)
+    with open(path, "w") as f:
+        json.dump(bench, f)

@@ -4,7 +4,9 @@ run's seed in a few large calls.
 Weights follow a reference's spec, [(name, shape, init)]: "zeros",
 "ones", ("trunc", std) a normal clamped at two deviations (flax's
 truncated lecun-normal kernels and SparK's mask tokens, the cut made by a
-clamp), ("normal", std). The corpus is 1,024 (or the configuration's
+clamp), ("normal", std), ("unit_rows",) normal draws scaled so that each
+row over the last dimension has norm 1 (a queue of keys). Every drawn
+entry comes from one flat draw, in the spec's order. The corpus is 1,024 (or the configuration's
 count) smooth random fields with fine noise, each scaled to [0, 1]: a
 synthetic stand-in for grey-level angiograms, the same for the same seed.
 """
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 _WEIGHTS, _CORPUS = 2, 3  # streams of the run's seed
+DRAWN = ("trunc", "normal", "unit_rows")
 
 
 def generator(device, seed: int, stream: int) -> torch.Generator:
@@ -30,10 +33,14 @@ def make_weights(spec: List[Tuple[str, tuple, object]], seed: int,
                  device) -> Dict[str, torch.Tensor]:
     """{name: float32 tensor on `device`} for every entry of `spec`."""
     drawn = [(n, s, i) for n, s, i in spec if isinstance(i, tuple)]
+    for name, _, init in drawn:
+        if init[0] not in DRAWN:
+            raise ValueError(f"{name}: unknown init {init!r}")
     sizes = [int(torch.Size(s).numel()) for _, s, _ in drawn]
     out: Dict[str, torch.Tensor] = {}
     if drawn:
-        std = torch.tensor([i[1] for _, _, i in drawn], device=device)
+        std = torch.tensor([1.0 if i[0] == "unit_rows" else i[1]
+                            for _, _, i in drawn], device=device)
         cut = torch.tensor([2.0 * i[1] if i[0] == "trunc" else float("inf")
                             for _, _, i in drawn], device=device)
         counts = torch.tensor(sizes, device=device)
@@ -43,8 +50,11 @@ def make_weights(spec: List[Tuple[str, tuple, object]], seed: int,
         bound = torch.repeat_interleave(cut, counts)
         flat = torch.maximum(torch.minimum(
             flat * torch.repeat_interleave(std, counts), bound), -bound)
-        for (name, shape, _), part in zip(drawn, flat.split(sizes)):
+        for (name, shape, init), part in zip(drawn, flat.split(sizes)):
             out[name] = part.view(shape)
+            if init[0] == "unit_rows":
+                out[name] = out[name] / torch.linalg.vector_norm(
+                    out[name], dim=-1, keepdim=True)
     for name, shape, init in spec:
         if init == "zeros":
             out[name] = torch.zeros(shape, device=device)
