@@ -16,7 +16,8 @@
 #include <cuda_runtime.h>
 
 #define CMX_SPANS(X) \
-  X(feed) X(views) X(forward) X(norm) X(loss) X(backward) X(optimizer) X(guard)
+  X(feed) X(views) X(forward) X(norm) X(loss) X(backward) X(optimizer) X(guard) \
+  X(momentum)
 
 namespace cmx {
 

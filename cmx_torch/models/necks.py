@@ -1,5 +1,5 @@
 """MLP necks: CM-UNet's projector and predictor (port of
-cmx/models/necks.py).
+cmx/models/necks.py), and the row normalisation of the contrastive heads.
 
 NonLinearNeck is fc0 -> BN -> ReLU -> fc1 (with_bias, no last BN, no
 avg-pool: configs/cmunet_config.py:21-41), always in fp32 and returning
@@ -17,6 +17,12 @@ import torch.nn as nn
 from cmx_torch.models.blocks import Dense, MaskedBatchNorm
 from cmx_torch.parallel import mesh
 from cmx_torch.utils.profiling import span
+
+
+def normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    """Each row of (B, D) over its L2 norm, with no epsilon (CM-UNet's
+    InfoNCE and MoCo's queries and keys, as cmx's)."""
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
 class FeatureBatchNorm(MaskedBatchNorm):

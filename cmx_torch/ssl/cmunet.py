@@ -42,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cmx_torch.models.blocks import reset_parameters
-from cmx_torch.models.necks import NonLinearNeck
+from cmx_torch.models.necks import NonLinearNeck, normalize_rows
 from cmx_torch.models.unet import BOTTLENECK_WIDTH, UNetDecoder, UNetEncoder
 from cmx_torch.ops.augment import cmunet_two_views_batch, cmunet_view_draws
 from cmx_torch.ops.masking import random_patch_mask
@@ -107,10 +107,6 @@ def init_cmunet_extra(gen: torch.Generator,
             "reduce_kernel": (kernel * math.sqrt(2.0 / BOTTLENECK_WIDTH)).to(dev)}
 
 
-def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
-
-
 def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
                      mask_ratio: float = 0.65, patch_size: int = 16,
                      temperature: float = 0.07, ct_weight: float = 1.0,
@@ -170,8 +166,8 @@ def make_cmunet_task(model: Optional[CMUNetOnline] = None, *,
         # against every rank's targets.
         with span("loss", pred_s) as sp:
             pred_s = sp.inputs(pred_s)
-            targets = mesh.all_gather_batch(_normalize_rows(proj_t))
-            score = _normalize_rows(pred_s) @ targets.t()
+            targets = mesh.all_gather_batch(normalize_rows(proj_t))
+            score = normalize_rows(pred_s) @ targets.t()
             labels = (torch.arange(b, device=score.device)
                       + mesh.info()[0] * b)
             loss_ct = sp.outputs(mesh.global_mean(

@@ -13,6 +13,9 @@ cmx/ssl/moco.py:43-224).
     toward the updated online parameters, then the keys enqueued at the
     pointer and ptr = (ptr + B) mod K. The trainer's NaN guard covers all of
     it, and the key BN stats.
+With spans on (cmx_torch.utils.profiling) the two views are the span
+`views`, the key encoder's forward and its row normalisation the span
+`momentum`, and the contrast the span `loss`, forward and backward.
 Under data parallel (cmx_torch.parallel.mesh) B is the global batch, as in
 cmx's global-view step: the views' draws are made for it and each rank
 takes its rows; a rank's queries meet its own keys as positives and the
@@ -29,16 +32,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from cmx_torch.models.necks import normalize_rows
 from cmx_torch.models.unet import UNetEncoderGAP
 from cmx_torch.ops.augment import moco_view_aug_batch, moco_view_draws
 from cmx_torch.parallel import mesh
 from cmx_torch.train.trainer import Task, TaskAux
+from cmx_torch.utils.profiling import span
 
 EMB_DIM = 1024
-
-
-def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
 def init_moco_extra(gen: torch.Generator, model: UNetEncoderGAP,
@@ -51,7 +52,7 @@ def init_moco_extra(gen: torch.Generator, model: UNetEncoderGAP,
         p.requires_grad_(False)
     queue = torch.randn((num_negatives, model.emb_dim), generator=gen,
                         device=gen.device).to(dev)
-    return {"key_model": key_model, "queue": _normalize_rows(queue),
+    return {"key_model": key_model, "queue": normalize_rows(queue),
             "queue_ptr": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -59,7 +60,7 @@ def init_val_queue(gen: torch.Generator, num_negatives: int = 65536,
                    emb_dim: int = EMB_DIM) -> Dict[str, torch.Tensor]:
     """The separate validation queue (moco2_module.py:137-142)."""
     q = torch.randn((num_negatives, emb_dim), generator=gen, device=gen.device)
-    return {"queue": _normalize_rows(q),
+    return {"queue": normalize_rows(q),
             "queue_ptr": torch.zeros((), dtype=torch.int32, device=gen.device)}
 
 
@@ -136,13 +137,17 @@ def make_moco_task(model: Optional[UNetEncoderGAP] = None, *,
                 extra: Optional[Dict[str, Any]] = None):
         _check_divisible(num_negatives, mesh.global_batch(imgs.shape[0]),
                          "queue")
-        img_q, img_k = _views(imgs, gen, draws, *view_args)
-        q = _normalize_rows(model(img_q))
+        with span("views", imgs):
+            img_q, img_k = _views(imgs, gen, draws, *view_args)
+        q = normalize_rows(model(img_q))
         key_model = extra["key_model"]
         key_model.train()
-        with torch.no_grad():
-            k = _normalize_rows(key_model(img_k))
-        loss, metrics = _contrast(q, k, extra["queue"], temperature)
+        with span("momentum", img_k), torch.no_grad():
+            k = normalize_rows(key_model(img_k))
+        with span("loss", q) as sp:
+            loss, metrics = _contrast(sp.inputs(q), k, extra["queue"],
+                                      temperature)
+            loss = sp.outputs(loss)
         return loss, TaskAux(metrics=metrics, updates={"keys": k})
 
     def post_update(state, aux: TaskAux):
@@ -187,8 +192,8 @@ def make_moco_validate(model: UNetEncoderGAP, *, temperature: float = 0.07,
         model.eval()
         key_model.eval()
         try:
-            q = _normalize_rows(model(img_q))
-            k = _normalize_rows(key_model(img_k))
+            q = normalize_rows(model(img_q))
+            k = normalize_rows(key_model(img_k))
         finally:
             model.train(modes[0])
             key_model.train(modes[1])

@@ -25,7 +25,7 @@ they are given.
 
 The names, in csrc/span_marks.cu's CMX_SPANS order:
   feed       the StepGraph's row gather from the resident corpus
-  views      a task's crops, flips, jitter and mask draws
+  views      a task's crops, rotations, blurs, flips, noise and mask draws
   forward    the task's loss_fn, outside narrower spans
   norm       a batch norm's moments, folds and running update (the fused
              DoubleConv's K1/K2 calls whole), forward and backward
@@ -33,6 +33,9 @@ The names, in csrc/span_marks.cu's CMX_SPANS order:
   backward   torch.autograd.grad, outside narrower spans
   optimizer  the global gradient norm and the optimizer's update
   guard      the NaN guard's buffer copies and restores, and post_update
+  momentum   a momentum network's forward without gradient and the row
+             normalisation of its output (MoCo's key encoder; CM-UNet's
+             target stays under `forward`)
 """
 
 from __future__ import annotations

@@ -282,7 +282,7 @@ def test_step_graph_reports_its_set_up_counters(monkeypatch):
 def test_span_names_are_the_csrc_list_and_unknown_names_raise():
     assert profiling.span_names() == (
         "feed", "views", "forward", "norm", "loss", "backward", "optimizer",
-        "guard")
+        "guard", "momentum")
     profiling.set_spans(True)
     with pytest.raises(ValueError, match="unknown span"):
         profiling.span("nowhere")
