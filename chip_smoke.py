@@ -329,6 +329,19 @@ counterpart of cmx's train.scan), with cuDNN's deterministic algorithms:
      phase runs with cuDNN's deterministic algorithms and adds the same
      2-epoch run with train.scan=False (every step eager): encoder.npz
      bit for bit and log.jsonl equal, both runs' epoch img/s.
+  NORM. (after CM1; `python3 chip_smoke.py --norm` builds the kernels and
+     runs it alone) one eager step of the programs of cmunet-b128 (CM-UNet
+     at batch 128), moco-b256-graph (MoCo at batch 256), spark-b128-unfused
+     and spark-b128-fused (SparK at batch 128, 256^2: the masked 256^2 rows
+     and the fused path's channel-major densify norms), the norm kernels'
+     calls recorded, the first of each signature replayed through
+     its wrapper and its plain version (`norm_phase`): time, bytes bound,
+     plain time, sums within rel 1e-5 of float64 sums of the same fp32
+     terms and element-wise outputs bit for bit, and
+     F.batch_norm's forward and backward beside the unmasked norms; each
+     pass's ms a step. Phases that record a step keep the calls of K1-K8
+     only (`KernelCalls`); `wrapper_calls` leaves the norms' counters out
+     of the graphs' capture calls.
 Then the K1-K8 bounds at the recorded shapes, and three lines: the kernels
 as JSON (the SparK/MoCo paths' rows, as before, K4's launches counting
 VIEWS' pallas views too, K1's and K2's launches
@@ -549,18 +562,28 @@ def make_step(cfg, lr=None, seed: int = 1):
 def record_step(state, step, imgs):
     """(the recorded kernel calls, the step's loss): one step with the
     wrappers recording their calls (also the warm-up that compiles the
-    Triton kernel)."""
+    Triton kernel); the calls of kernels()' wrappers, the norm kernels'
+    left to phase NORM (`KernelCalls`)."""
     import torch
 
     from cmx_torch.ops import _build
 
-    _build.recorded = []
+    _build.recorded = KernelCalls()
     try:
         m = step(state, imgs)
         torch.cuda.synchronize()
-        return _build.recorded, float(m["loss"])
+        return list(_build.recorded), float(m["loss"])
     finally:
         _build.recorded = None
+
+
+class KernelCalls(list):
+    """A `_build.recorded` that keeps the calls of kernels()' wrappers (K1-K8)
+    and drops the norm kernels' (phase NORM records those)."""
+
+    def append(self, item):
+        if item[0] in kernels():
+            super().append(item)
 
 
 def stage_of(args) -> tuple:
@@ -1344,9 +1367,10 @@ class _Tee:
 def wrapper_calls(calls: dict) -> dict:
     """A graph report's capture calls of the port's kernel wrappers: its
     `capture_calls` less the library convolutions' counts by layout
-    (cmx_torch.models.blocks.LIBRARY_CONV_CALLS)."""
+    (cmx_torch.models.blocks.LIBRARY_CONV_CALLS) and the batch norms'
+    (the norm kernels' wrappers and blocks.NORM_CALLS: phase NORM's)."""
     return {n: c for n, c in calls.items()
-            if not n.startswith("library_conv_")}
+            if not n.startswith(("library_conv_", "norm_"))}
 
 
 def graph_launches(wrappers: dict, since: int, per_step: dict,
@@ -1836,19 +1860,27 @@ def cm_phase(batch: int, steps: int) -> dict:
           f"{scaled_base_lr(cfg.optim.lr, batch):.4g} warm-up "
           f"{cfg.optim.warmup_epochs} steps, clip {cfg.optim.clip_norm}",
           flush=True)
+    from cmx_torch.models import blocks
+
     wrappers = {name: k[0] for name, k in kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
+    norms0 = dict(blocks.NORM_CALLS)
     step_ms, _, moved = cm_run(state, step, imgs, steps, "CM1")
     launches = {n: fn.launches for n, fn in wrappers.items()}
+    norms = {k: v - norms0[k] for k, v in blocks.NORM_CALLS.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"CM1: launches of the port's kernels in {steps} steps {launches} "
-          f"(expected none: cmx builds CM-UNet unfused); target BN running "
-          f"stats moved (largest change {moved:.3e}); peak memory "
-          f"{peak:.2f} GiB (max_memory_allocated over set-up and the "
-          f"steps)", flush=True)
+    print(f"CM1: launches of the port's K1-K8 in {steps} steps {launches} "
+          f"(expected none: cmx builds CM-UNet unfused); batch norms by "
+          f"path {norms} (expected every one through the norm kernels); "
+          f"target BN running stats moved (largest change {moved:.3e}); "
+          f"peak memory {peak:.2f} GiB (max_memory_allocated over set-up "
+          f"and the steps)", flush=True)
     if any(launches.values()):
         fail("the CM-UNet step launched a kernel of the port")
+    if norms["norm_plain"] or not norms["norm_kernel_channels_last"]:
+        fail(f"the CM-UNet step ran a batch norm outside the norm kernels: "
+             f"{norms}")
     if not moved > 0.0:
         fail("the CM-UNet target's BN running stats did not move")
     profile_steps(lambda: step(state, imgs), 2, step_ms, "CM1")
@@ -1856,6 +1888,219 @@ def cm_phase(batch: int, steps: int) -> dict:
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
             "peak_gib": peak}
+
+
+# phase NORM's programs by the cell whose shapes they give: CM-UNet and
+# MoCo (channels-last rows), SparK unfused (its masked 256^2 levels) and
+# fused (the flat path's channel-major densify norms), each at full width
+NORM_CELLS = {
+    "cmunet-b128": lambda: make_cm_cfg(128),
+    "moco-b256-graph": lambda: make_moco_cfg(256, "pallas"),
+    "spark-b128-unfused": lambda: make_cfg(128, fused=False),
+    "spark-b128-fused": lambda: make_cfg(128, fused=True),
+}
+NORM_PASSES = ("norm_moments", "norm_apply", "norm_grad_sums",
+               "norm_grad_input")
+
+
+def _operand_key(a):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), a.stride(), str(a.dtype)
+    return a
+
+
+class NormCalls(list):
+    """A `_build.recorded` for phase NORM: the first call of each norm
+    kernel's wrapper at each operand signature (shapes, strides, dtypes,
+    the epilogue's flags), and in `counts` the step's calls of each."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def append(self, item):
+        name, args = item
+        if name not in NORM_PASSES:
+            return
+        key = (name,) + tuple(_operand_key(a) for a in args)
+        if key not in self.counts:
+            super().append(item)
+        self.counts[key] += 1
+
+
+def norm_bytes(name: str, args) -> int:
+    """The bytes a norm pass must move: x (and dy) read once, the output
+    written once, the mask read once (the C-sized constants and partials
+    left out)."""
+    grad = name.startswith("norm_grad")
+    x, mask = (args[1], args[2]) if grad else (args[0], args[1])
+    nx = x.numel() * x.element_size()
+    moved = {"norm_moments": 1, "norm_apply": 2, "norm_grad_sums": 2,
+             "norm_grad_input": 3}[name] * nx
+    return moved + (0 if mask is None else mask.numel() * mask.element_size())
+
+
+def norm_exact_sums(name: str, args) -> list:
+    """The float64 sums per channel of the fp32 terms a sum pass adds up
+    (the plain version's terms: moments d = (x - shift) m and d^2; grad
+    sums g and g (x - mean)): what its sums are off from is their order
+    alone."""
+    import torch
+
+    from cmx_torch.ops import batch_norm as bo
+
+    if name == "norm_moments":
+        x, mask, shift = args
+        m = bo._mask4(mask, torch.float32)
+        d = x.float() - shift.float()[:, None, None]
+        terms = (d if m is None else d * m,)
+        terms += (terms[0] * terms[0],)
+    else:
+        dy, x, mask, inv_t, shift_t, mean, relu = args
+        g = bo._grad_in(dy, x, mask, inv_t, shift_t, relu)
+        terms = (g, g * (x.float() - mean[:, None, None]))
+    return [t.double().sum((0, 2, 3)) for t in terms]
+
+
+def sums_off(sums, exact) -> float:
+    """The largest relative error, each over its largest exact sum, of a
+    sum pass's (2 C [+ 1]) sums against `norm_exact_sums`'s two C-vectors."""
+    c = exact[0].numel()
+    return max(float((sums[i * c:(i + 1) * c].double() - e).abs().max()
+                     / e.abs().max().clamp(min=1e-30))
+               for i, e in enumerate(exact))
+
+
+def _batch_norm_library_ms(x, iters: int) -> tuple:
+    """(forward ms, backward ms) of one F.batch_norm in training mode on x
+    (bf16, its layout; fp32 weight and bias, cuDNN): the library's unmasked
+    norm without the ReLU, the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    x = x.detach().clone().requires_grad_()
+    c = x.shape[1]
+    w = torch.ones(c, device=x.device, requires_grad=True)
+    b = torch.zeros(c, device=x.device, requires_grad=True)
+    fwd = time_ms(lambda: F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5),
+                  iters)
+    y = F.batch_norm(x, None, None, w, b, True, 0.1, 1e-5)
+    dy = torch.randn_like(y)
+    bwd = time_ms(lambda: torch.autograd.grad(y, (x, w, b), dy,
+                                              retain_graph=True), iters)
+    return fwd, bwd
+
+
+def norm_phase(iters: int) -> dict:
+    """Phase NORM: one eager step of each program in NORM_CELLS (CM-UNet
+    at batch 128, MoCo at 256, SparK unfused and fused at 128), its norm
+    kernels' calls recorded (`NormCalls`); the first call
+    of each signature replayed through its wrapper and its plain version:
+    the wrapper's device time (its kernels by the profiler: the eager
+    wrapper's host time, which a graph replay does not pay, left out; the
+    wall clock beside it), its bytes bound at 3.35 TB/s, the plain
+    version's time, the sums held to float64 sums of the same fp32 terms
+    (`norm_exact_sums`) at rel 1e-5 of the largest sum, with the plain
+    version's fp32 sums' error beside them (where the terms cancel to
+    1/2000 of their magnitudes, as in SparK's masked bottleneck, torch's
+    fp32 sums are off by 1.8e-5 themselves, so they cannot be the
+    yardstick), the count exact, and the element-wise outputs bit for
+    bit; for an
+    unmasked norm the library's F.batch_norm forward (on the moments row)
+    and backward (on the grad sums row) as the yardstick, which the port
+    never calls. Per cell, the step's norms by path (none plain) and each
+    pass's ms a step (a signature's time times its calls)."""
+    import gc
+
+    import torch
+
+    from cmx_torch.models import blocks
+    from cmx_torch.ops import _build
+    from cmx_torch.ops import batch_norm as bo
+
+    t0 = time.perf_counter()
+    out = {}
+    for cell, make in NORM_CELLS.items():
+        state, step, imgs = make_step(make(), seed=0)
+        norms0 = dict(blocks.NORM_CALLS)
+        _build.recorded = NormCalls()
+        try:
+            step(state, imgs)
+            torch.cuda.synchronize()
+            calls = _build.recorded
+        finally:
+            _build.recorded = None
+        norms = {k: v - norms0[k] for k, v in blocks.NORM_CALLS.items()}
+        print(f"NORM {cell} the step's norms by path: {norms}", flush=True)
+        if norms["norm_plain"]:
+            fail(f"NORM {cell}: {norms['norm_plain']} norms ran plain")
+        del state, step, imgs
+        gc.collect()
+        torch.cuda.empty_cache()
+        totals = {n: [0.0, 0.0, 0.0, 0] for n in NORM_PASSES}
+        for (name, args), (key, count) in zip(calls, calls.counts.items()):
+            fn, plain = getattr(bo, name), getattr(bo, name + "_plain")
+            got, ref = fn(*args), plain(*args)
+            if name in ("norm_moments", "norm_grad_sums"):
+                c = (ref.numel() - ref.numel() % 2) // 2
+                exact = norm_exact_sums(name, args)
+                err, plain_err = sums_off(got, exact), sums_off(ref, exact)
+                vs_plain = max(rel_err(got[:c], ref[:c])[1],
+                               rel_err(got[c:2 * c], ref[c:2 * c])[1])
+                ok = err <= 1e-5 and torch.equal(got[2 * c:], ref[2 * c:])
+                what = (f"sums rel_err {err:.2e} to float64 sums of the "
+                        f"same terms (tol 1e-5; the plain version's "
+                        f"{plain_err:.2e}), {vs_plain:.2e} to the plain "
+                        f"version's")
+                del exact
+            else:
+                ok = torch.equal(got, ref)
+                what = f"bits equal {ok}"
+            wall = time_ms(lambda: fn(*args), iters)
+            ms, kernels_a_call = device_ms(lambda: fn(*args), iters)
+            plain_ms = time_ms(lambda: plain(*args), max(2, iters // 5))
+            bound = norm_bytes(name, args) / 3.35e12 * 1e3
+            x = args[1] if name.startswith("norm_grad") else args[0]
+            mask = args[2] if name.startswith("norm_grad") else args[1]
+            flags = [a for a in args if isinstance(a, bool)]
+            lib = ""
+            if mask is None and name == "norm_moments":
+                lib = (f"; F.batch_norm forward "
+                       f"{_batch_norm_library_ms(x, iters)[0]:.3f} ms")
+            elif mask is None and name == "norm_grad_sums":
+                lib = (f"; F.batch_norm backward "
+                       f"{_batch_norm_library_ms(x, iters)[1]:.3f} ms")
+            print(f"NORM {cell} {name} {tuple(x.shape)} "
+                  f"{bo.layout_of(x)} {'masked' if mask is not None else 'unmasked'}"
+                  f" relu {flags or '-'} x{count} a step: {ms:.4f} device ms "
+                  f"({kernels_a_call} kernels; {wall:.4f} ms by the wall "
+                  f"clock, eager), bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f}%), plain {plain_ms:.3f} ms; "
+                  f"{what}{lib}", flush=True)
+            if not ok:
+                fail(f"NORM {cell}: {name} at {tuple(x.shape)} differs from "
+                     f"its plain version ({what})")
+            t = totals[name]
+            t[0] += count * ms
+            t[1] += count * bound
+            t[2] += count * plain_ms
+            t[3] += count
+            del got, ref
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[cell] = totals
+        print(f"NORM {cell} a step, by pass (calls: kernel / bound / plain "
+              f"ms): " + "; ".join(
+                  f"{n} ({t[3]}): {t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f}"
+                  for n, t in totals.items())
+              + f"; all four: {sum(t[0] for t in totals.values()):.3f} / "
+              f"{sum(t[1] for t in totals.values()):.3f} / "
+              f"{sum(t[2] for t in totals.values()):.3f}", flush=True)
+    print(f"NORM took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def make_mae_cfg(batch: int, fused: bool):
@@ -2344,11 +2589,11 @@ def rm_config(label: str, cfg, expect: dict, steps: int, iters: int = 0):
     from cmx_torch.ops import fused_conv_flat as ff
 
     state, step, imgs = make_step(cfg)
-    _build.recorded = []
+    _build.recorded = KernelCalls()
     try:
         m = step(state, imgs)
         torch.cuda.synchronize()
-        calls = _build.recorded
+        calls = list(_build.recorded)
     finally:
         _build.recorded = None
     per_step = dict(collections.Counter(name for name, _ in calls))
@@ -3883,21 +4128,25 @@ SPARK_PER_STEP = {"flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
 
 def moments_probe(model):
     """(taken, errors, a MaskedBatchNorm.moments to patch in): while it is
-    patched in, `taken` lists the norms of `model` whose moments PyTorch
-    computes, and every such moment in a stage of BNV_MAX_HW^2 or less and
-    every densify norm's is held against a float64 two-pass of the same
-    activations and mask: errors[name] = (H, the largest relative error of
-    the variant's batch variance over the channels)."""
+    patched in, `taken` lists the norms of `model` whose moments the norm
+    kernels compute (every unfused norm on the card), and every such
+    moment in a stage of BNV_MAX_HW^2 or less and every densify norm's is
+    held against a float64 two-pass of the same activations and mask:
+    errors[name] = (H, the largest relative error of the variant's batch
+    variance over the channels)."""
     import torch
 
     from cmx_torch.models import blocks
+    from cmx_torch.ops import batch_norm as bo
 
     names = {id(m): n for n, m in model.named_modules()}
     orig = blocks.MaskedBatchNorm.moments
     taken, errors = [], {}
 
-    def moments(self, x, mask=None):
-        mean, var = orig(self, x, mask)
+    def moments(self, x, mask=None, sums=bo.norm_moments_plain):
+        mean, var, denom = orig(self, x, mask, sums)
+        if sums is not bo.norm_moments:  # the plain composition's
+            return mean, var, denom
         name = names.get(id(self), "?")
         taken.append(name)
         if x.shape[-2] <= BNV_MAX_HW or "densify" in name:
@@ -3911,7 +4160,7 @@ def moments_probe(model):
                 v = (((x64 - mu[:, None, None]) ** 2) * m64).sum((0, 2, 3)) / n
                 rel = (var.detach().double() - v).abs() / v.clamp(min=1e-30)
                 errors[name] = (x.shape[-2], float(rel.max()))
-        return mean, var
+        return mean, var, denom
 
     return taken, errors, moments
 
@@ -3961,7 +4210,7 @@ def bnv_phase(per_step: dict, flat_loss=None) -> dict:
                   f"(phase 1's {dict(per_step)}); first loss {loss:.6f}, rel "
                   f"diff to phase 1's (--bnv: the first variant's) "
                   f"{d_loss:.3e} (tol 2e-2); {len(taken)} unfused BN "
-                  f"moments taken, "
+                  f"moments taken by the norm kernels, "
                   f"{len(errors)} held against a float64 two-pass (stages "
                   f"<= {BNV_MAX_HW}^2 and the densify norms): largest "
                   f"relative var error {worst[1][1]:.3e} at {worst[0]} "
@@ -3973,7 +4222,9 @@ def bnv_phase(per_step: dict, flat_loss=None) -> dict:
             in_fused = [n for n in taken if n.startswith(fused_bns)]
             if in_fused:
                 fail(f"BNV {variant}: a fused stage's norm took its moments "
-                     f"in PyTorch: {in_fused}")
+                     f"outside K1/K2: {in_fused}")
+            if not taken:
+                fail(f"BNV {variant}: no unfused norm ran the norm kernels")
             if not (math.isfinite(loss) and d_loss <= 2e-2):
                 fail(f"BNV {variant}: the first loss {loss} is not finite or "
                      f"not within 2e-2 of {flat_loss}")
@@ -4085,6 +4336,8 @@ def main(argv=None) -> int:
                         "and MF-CLI alone")
     p.add_argument("--graph", action="store_true",
                    help="build the kernels, then run phase GRAPH alone")
+    p.add_argument("--norm", action="store_true",
+                   help="build the kernels, then run phase NORM alone")
     p.add_argument("--bnv", action="store_true",
                    help="build the kernels, then run phases BNV, FT-HOST (on "
                         "a corpus of its own) and GRAPH's NHWC case alone")
@@ -4147,6 +4400,10 @@ def main(argv=None) -> int:
           flush=True)
     if args.graph:
         graph_phase()
+        print(smi, flush=True)
+        return 0
+    if args.norm:
+        norm_phase(ITERS)
         print(smi, flush=True)
         return 0
     if args.bnv:
@@ -4269,6 +4526,7 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         cm = cm_phase(CM_BATCH, SPARK_STEPS)
+        norm_phase(ITERS)
         mae_per_step, mae_launches, mae_ms, mae_plain_ms, mae_kern = \
             mae_phase(MAE_BATCH, SPARK_STEPS, ITERS)
         for name in FLAT_KERNELS:

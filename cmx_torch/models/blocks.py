@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from cmx_torch.ops import batch_norm as bn_ops
 from cmx_torch.ops import fused_conv as fc
 from cmx_torch.parallel import mesh
 from cmx_torch.utils.profiling import span
@@ -58,6 +59,44 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 # cmx_torch.train.graph.launch_counts.
 LIBRARY_CONV_CALLS = {"library_conv_channels_last": 0,
                       "library_conv_channels_first": 0}
+
+
+# 4-D batch norms (MaskedBatchNorm) by the path they ran, counted at the call
+# as LIBRARY_CONV_CALLS are: the norm kernels over channels-last rows or
+# channel-major planes (cmx_torch/ops/batch_norm.py), or the plain PyTorch
+# composition (the CPU, fp64); read through launch_counts.
+NORM_CALLS = {"norm_kernel_channels_last": 0,
+              "norm_kernel_channels_first": 0, "norm_plain": 0}
+
+
+def norm_route(x: torch.Tensor, mask: Optional[torch.Tensor] = None
+               ) -> Optional[str]:
+    """The layout in which the norm kernels take x, or None where
+    MaskedBatchNorm runs its plain composition: a CPU tensor, and on the
+    card what `kernel_route` leaves plain."""
+    return kernel_route(x, mask) if x.is_cuda else None
+
+
+def kernel_route(x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                 ) -> Optional[str]:
+    """"channels_last" or "channels_first": the layout in which the norm
+    kernels take a 4-D bf16 or fp32 x, its own where it is one of the two
+    (ops/batch_norm.py::layout_of), else channels-last (MaskedBatchNorm
+    converts it). None for fp64 or not 4-D, which keep the plain
+    composition. Raises on any other dtype and on a mask of another shape
+    than (B,1,H,W) or (B,H,W): no other norm falls back to the plain
+    composition on the card."""
+    if x.dim() != 4 or x.dtype == torch.float64:
+        return None
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the norm kernels take bf16, fp32 or (plain) fp64, "
+                        f"got {x.dtype}")
+    if mask is not None:
+        b, _, h, w = x.shape
+        if tuple(mask.shape) not in ((b, 1, h, w), (b, h, w)):
+            raise ValueError(f"expected a mask (B,1,H,W) or (B,H,W) for x "
+                             f"{tuple(x.shape)}, got {tuple(mask.shape)}")
+    return bn_ops.layout_of(x) or "channels_last"
 
 
 def library_layout(x: torch.Tensor) -> torch.memory_format:
@@ -239,7 +278,22 @@ class MaskedBatchNorm(nn.Module):
     they are all-reduced (SyncBN, as cmx's global-view program computes
     them): one all-reduce for "shift_ra" and "naive", a MAX all-reduce of
     the subsample max before it for "shift_max", two for "two_pass". So the
-    running stats, and with them the shift, stay equal on every rank."""
+    running stats, and with them the shift, stay equal on every rank.
+
+    `relu` folds the DoubleConv's epilogue into the norm: the output
+    max(y, 0) times the mask (the re-mask). On the card every 4-D bf16 or
+    fp32 norm runs through the kernels of cmx_torch/ops/batch_norm.py
+    (`norm_route`; x channels-last or channel-major, other strides
+    converted to channels-last; another dtype, a mask of another shape or
+    a module dtype other than x's raises): the moments weight each
+    position by the mask, so the input needs no re-mask, and the backward
+    is one analytic pass pair for every variant (one all-reduce of two
+    C-vectors under data parallel, where autograd ran one a moment
+    all-reduce). The CPU and fp64 run the plain composition, which under
+    `relu` multiplies the input by the mask first (the DoubleConv's
+    pre-norm re-mask: the same moments and output for a 0/1 mask). Both
+    take their moments from `moments`, with the kernel's sums or their
+    plain version. Each call is counted in NORM_CALLS."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
                  momentum: float = 0.9, epsilon: float = 1e-5):
@@ -270,84 +324,118 @@ class MaskedBatchNorm(nn.Module):
         self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
         self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
 
-    def moments(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> tuple:
-        """(mean, var) of the batch in the statistics dtype, before their
-        fp32 cast and the clamp, by the variant BN_VARIANT names."""
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        red = (0, 2, 3)
-        c = xf.shape[1]
-        variant = "two_pass" if xf.dtype == torch.float64 else BN_VARIANT
-        if mask is None:
-            m = None
-            n = xf.new_full((1,), float(xf.numel() // c))
-        else:
-            m = mask.to(xf.dtype)
-            if m.dim() == 3:
-                m = m[:, None]
-            n = m.sum(red)
+    def moments(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                sums=bn_ops.norm_moments_plain) -> tuple:
+        """(mean, var, the count they divide by) of the batch in the
+        statistics dtype, var before the fp32 cast and the clamp, by the
+        variant BN_VARIANT names. `sums(x, mask, s)` gives this process's
+        (2 C + 1) sums of d = (x - s) m, of d^2 and of m: the moments kernel
+        on the kernel route (no gradient: NormFunction's backward takes the
+        moments' gradient), its plain version in the plain composition,
+        where the gradient runs through them."""
+        c = x.shape[1]
+        sd = torch.promote_types(x.dtype, torch.float32)
+        variant = "two_pass" if sd == torch.float64 else BN_VARIANT
         if variant == "two_pass":
-            xm = xf if m is None else xf * m
-            sums = mesh.all_reduce_sync(torch.cat([xm.sum(red), n]))
-            denom = sums[c:] if m is None else torch.clamp(sums[c:], min=1.0)
-            mean = sums[:c] / denom
-            d = xf - mean[:, None, None]
-            sq = d * d if m is None else d * d * m
-            return mean, mesh.all_reduce_sync(sq.sum(red)) / denom
+            first = sums(x, mask, x.new_zeros((c,), dtype=sd))
+            first = mesh.all_reduce_sync(torch.cat([first[:c],
+                                                    first[2 * c:]]))
+            denom = first[c:] if mask is None else torch.clamp(first[c:],
+                                                                min=1.0)
+            mean = first[:c] / denom
+            second = sums(x, mask, mean)
+            return mean, mesh.all_reduce_sync(second[c:2 * c]) / denom, denom
         if variant == "shift_ra":
-            s = self.mean.clone().to(xf.dtype)
+            s = self.mean.clone().to(sd)
         elif variant == "shift_max":
-            s = _subsample_max(xf, m)
+            s = _subsample_max(x, mask)
         else:  # naive
-            s = xf.new_zeros((c,))
-        s = s[:, None, None]  # a constant: no gradient
-        d = xf - s if m is None else (xf - s) * m
+            s = x.new_zeros((c,), dtype=sd)
         # the sums over the global batch (one all-reduce under data
-        # parallel, whose backward sums the ranks' cotangents)
-        sums = mesh.all_reduce_sync(
-            torch.cat([d.sum(red), (d * d).sum(red), n]))
-        denom = sums[2 * c:] if m is None else torch.clamp(
-            sums[2 * c:], min=1.0)
-        dm = sums[:c] / denom
-        return dm + s[:, 0, 0], sums[c:2 * c] / denom - dm * dm
+        # parallel, whose backward sums the ranks' cotangents); s is a
+        # constant: no gradient
+        t = mesh.all_reduce_sync(sums(x, mask, s))
+        denom = t[2 * c:] if mask is None else torch.clamp(t[2 * c:],
+                                                            min=1.0)
+        dm = t[:c] / denom
+        return dm + s, t[c:2 * c] / denom - dm * dm, denom
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B,C,H,W); mask (B,1,H,W) or (B,H,W) with 1 = active. The
-        span `norm` with spans on (cmx_torch.utils.profiling)."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        """x (B,C,H,W); mask (B,1,H,W) or (B,H,W) with 1 = active; `relu`
+        the DoubleConv's epilogue (class note). The span `norm` with spans
+        on (cmx_torch.utils.profiling)."""
         with span("norm", x) as sp:
             x = sp.inputs(x)
-            if not self.training:
-                mean, var = self.mean, self.var
+            route = norm_route(x, mask)
+            if route is None:
+                if x.dim() == 4:
+                    NORM_CALLS["norm_plain"] += 1
+                return sp.outputs(self._plain(x, mask, relu))
+            if self.dtype not in (None, x.dtype):
+                raise TypeError(f"the norm kernels normalise in x's dtype "
+                                f"{x.dtype}; this norm's is {self.dtype}")
+            NORM_CALLS["norm_kernel_" + route] += 1
+            x = x.contiguous(memory_format=torch.channels_last
+                             if route == "channels_last"
+                             else torch.contiguous_format)
+            if self.training:
+                with torch.no_grad():
+                    mean, var, denom = self.moments(x, mask,
+                                                    bn_ops.norm_moments)
+                live = var >= 0
+                var = torch.clamp(var, min=0.0)
+                self.update_running(mean, var)
             else:
-                mean, var = self.moments(x, mask)
-                mean = mean.float()
-                var = torch.clamp(var, min=0.0).float()
-                self.update_running(mean.detach(), var.detach())
-            out_dtype = self.dtype or x.dtype
-            inv = torch.rsqrt(var + self.epsilon) * self.scale
-            shift = self.bias - mean * inv
-            return sp.outputs(
-                x.to(out_dtype) * inv.to(out_dtype)[:, None, None]
-                + shift.to(out_dtype)[:, None, None])
+                mean, var, denom, live = self.mean, self.var, None, None
+            return sp.outputs(bn_ops.NormFunction.apply(
+                x, self.scale, self.bias, mask, mean, var, live, denom,
+                self.epsilon, relu))
+
+    def _plain(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                relu: bool) -> torch.Tensor:
+        """The plain composition: [x * mask], the norm, [ReLU, * mask]."""
+        remask = relu and mask is not None
+        if remask:
+            x = x * mask.to(x.dtype)
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            mean, var, _ = self.moments(x, mask)
+            mean = mean.float()
+            var = torch.clamp(var, min=0.0).float()
+            self.update_running(mean.detach(), var.detach())
+        out_dtype = self.dtype or x.dtype
+        inv = torch.rsqrt(var + self.epsilon) * self.scale
+        shift = self.bias - mean * inv
+        y = (x.to(out_dtype) * inv.to(out_dtype)[:, None, None]
+             + shift.to(out_dtype)[:, None, None])
+        if relu:
+            y = torch.relu(y)
+        if remask:
+            y = y * mask.to(y.dtype)
+        return y
 
 
 @torch.no_grad()
-def _subsample_max(xf: torch.Tensor, m: Optional[torch.Tensor]):
+def _subsample_max(x: torch.Tensor, mask: Optional[torch.Tensor]):
     """shift_max's shift: the per-channel max of x[:, :, ::8, ::8] over its
-    active positions (masked ones filled with -3e38, as cmx), over the
-    global batch (a MAX all-reduce under data parallel); 0 where no
-    subsampled position is active."""
-    xs = xf[:, :, ::8, ::8]
-    if m is not None:
-        ms = m[:, :, ::8, ::8]
+    active positions (masked ones filled with -3e38, as cmx), in the
+    statistics dtype, over the global batch (a MAX all-reduce under data
+    parallel); 0 where no subsampled position is active."""
+    xs = x[:, :, ::8, ::8].to(torch.promote_types(x.dtype, torch.float32))
+    if mask is not None:
+        m = mask if mask.dim() == 4 else mask[:, None]
+        ms = m[:, :, ::8, ::8].to(xs.dtype)
         xs = torch.where(ms > 0, xs * ms, xs.new_full((), -3e38))
     s = mesh.all_reduce_max(xs.amax((0, 2, 3)))
     return torch.where(s < -1e37, torch.zeros_like(s), s)
 
 
 class DoubleConv(nn.Module):
-    """Two (Conv3x3 -> re-mask -> masked BN -> ReLU -> re-mask) stages.
+    """Two (Conv3x3 -> re-mask -> masked BN -> ReLU -> re-mask) stages; the
+    re-masks and the ReLU are the norm's epilogue (MaskedBatchNorm's
+    `relu`).
 
     In training mode with `fused`, bf16 and a stage shape inside the gates of
     cmx (H >= FUSED_MIN_HW, H % STRIP == 0, W % 8 == 0, Cin <= FUSED_MAX_CIN;
@@ -410,12 +498,7 @@ class DoubleConv(nn.Module):
             return out
 
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-            x = conv(x)
-            if mask is not None:
-                x = x * mask.to(x.dtype)
-            x = torch.relu(bn(x, mask))
-            if mask is not None:
-                x = x * mask.to(x.dtype)
+            x = bn(conv(x), mask, relu=True)
         return x
 
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
                       "cmx_dw_blocks_per_sm": "i",
                       "cmx_mma_geometry": "p"},
     "span_marks": {"cmx_span_count": "", "cmx_span_mark": "ii" + "p"},
+    "batch_norm": {"cmx_norm_pass": "iiii" + "pppppp" + "iiiiii" + "p",
+                   "cmx_norm_finalize": "pp" + "iiii" + "p"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 

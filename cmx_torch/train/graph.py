@@ -80,21 +80,23 @@ class GraphCaptureError(RuntimeError):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by the wrapper's name, and the
+    """Every kernel wrapper's launch count, by the wrapper's name, the
     library convolution calls by layout (`library_conv_channels_last`,
-    `library_conv_channels_first`: cmx_torch.models.blocks)."""
+    `library_conv_channels_first`) and the 4-D batch norms by path
+    (`norm_kernel_channels_last`, `norm_kernel_channels_first`,
+    `norm_plain`: cmx_torch.models.blocks)."""
     from cmx_torch.models import blocks
-    from cmx_torch.ops import (fused_conv, fused_conv_flat, pallas_crop,
-                               pallas_ops)
+    from cmx_torch.ops import (batch_norm, fused_conv, fused_conv_flat,
+                               pallas_crop, pallas_ops)
 
     fns = (fused_conv_flat.flat_conv3x3_mask_stats,
            fused_conv_flat.flat_bwd_mega, pallas_ops.spark_loss_pallas,
            pallas_ops.spark_loss_bwd, pallas_crop.crop_resize_pallas,
            pallas_ops.bn_relu_mask_pallas, fused_conv.conv_stem_stats,
            fused_conv.conv3x3_mask_stats, fused_conv.bwd_mega,
-           profiling.span_mark)
+           *batch_norm.WRAPPERS, profiling.span_mark)
     return {**{fn.__name__: fn.launches for fn in fns},
-            **blocks.LIBRARY_CONV_CALLS}
+            **blocks.LIBRARY_CONV_CALLS, **blocks.NORM_CALLS}
 
 
 def _culprit(exc: BaseException) -> str:

@@ -30,13 +30,22 @@ SparK graph under shift_max and two_pass bit for bit. With the program's
 spans on, a captured CM-UNet step's replays run its span markers in
 capture order. A captured bf16 CM-UNet step runs every library
 convolution channels-last; cuDNN transposes only its one- and two-channel
-operands.
+operands. The batch norm's kernels (csrc/batch_norm.cu) against their plain
+versions at the cells' shapes (C 64-1024, H W 14^2-256^2, B 128 and 256)
+and at odd ones (B 1, C and H W not multiples of 8), channels-last and
+channel-major, masked (bf16 and fp32 masks) and not: the sum passes rel
+1e-5 of their largest sum (fp32 sums in another order) with the count
+exact, the element-wise passes bit for bit (the same fp32 operations on the
+same constants); the same bits twice; a captured step at cmunet-b128's
+shape runs every norm through them; on the card only fp64 runs the plain
+norm, other strides run the kernels and what they cannot take raises.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cmx_torch.ops import batch_norm as bo
 from cmx_torch.ops import fused_conv as fc
 from cmx_torch.ops import fused_conv_flat as ff
 from cmx_torch.ops import pallas_crop as pc
@@ -643,8 +652,8 @@ def test_cmunet_fp32_step_on_card_matches_cpu(dev):
     against the port on the CPU: loss, loss_ct and loss_rc within 1e-4
     relative (the second step's forward runs on parameters the first left
     equal: its lr is 0), the target's BN running stats within 1e-4, the
-    reduce kernel unchanged, no kernel of the port launched (cmx builds
-    CM-UNet unfused)."""
+    reduce kernel unchanged, no K1/K2 launch (cmx builds CM-UNet unfused;
+    the norms run the norm kernels in fp32 on the card)."""
     from cmx_torch.ops.masking import random_patch_mask
 
     rng = np.random.default_rng(9)
@@ -998,13 +1007,22 @@ def _graph_genesis(dev):
         make_train_step(task, tx), imgs
 
 
+SPARK_NORMS = {"norm_moments": 19, "norm_apply": 19, "norm_grad_sums": 19,
+               "norm_grad_input": 19, "norm_kernel_channels_last": 17,
+               "norm_kernel_channels_first": 2}
+
+
 @pytest.mark.parametrize("case,calls", [
     ("spark", {"flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
                "spark_loss_pallas": 1, "spark_loss_bwd": 1,
-               "library_conv_channels_last": 19}),
-    ("moco", {"crop_resize_pallas": 2, "library_conv_channels_last": 20}),
+               "library_conv_channels_last": 19, **SPARK_NORMS}),
+    ("moco", {"crop_resize_pallas": 2, "library_conv_channels_last": 20,
+              "norm_moments": 20, "norm_apply": 20, "norm_grad_sums": 10,
+              "norm_grad_input": 10, "norm_kernel_channels_last": 20}),
     ("genesis", {"flat_conv3x3_mask_stats": 8, "flat_bwd_mega": 8,
-                 "library_conv_channels_last": 15})])
+                 "library_conv_channels_last": 15, "norm_moments": 10,
+                 "norm_apply": 10, "norm_grad_sums": 10,
+                 "norm_grad_input": 10, "norm_kernel_channels_last": 10})])
 def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
     """A capture and 3 replays against 4 eager steps from the same state,
     weights and batches (reduced widths, bf16, 64^2 or 48^2; FUSED_MIN_HW
@@ -1015,7 +1033,11 @@ def test_graph_replays_equal_eager_steps(dev, monkeypatch, case, calls):
     K1 8, K2 8) and its library convolutions all ran channels-last (SparK
     the encoder's three unfused levels and the unfused decoder: 19; MoCo
     two encoders: 20; Genesis three unfused levels of each half, four
-    up-convs and the head: 15)."""
+    up-convs and the head: 15); every batch norm outside K1/K2 ran through
+    the norm kernels, none plain (SparK: 6 of the encoder, 5 densify norms
+    of which the two at the fused levels read channel-major maps, 8 of the
+    decoder; MoCo: 10 a encoder, the key encoder's without a backward;
+    Genesis: 10)."""
     monkeypatch.setattr(fc, "FUSED_MIN_HW", 32)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     make = {"spark": _graph_spark, "moco": _graph_moco,
@@ -1031,7 +1053,8 @@ def test_graph_replays_equal_eager_steps_under_bn_variants(dev, monkeypatch,
     all-reduce's worth of work: the subsample max, on the device) or
     two_pass (a second pass over every unfused activation): the capture
     meets no host sync, replays equal eager steps bit for bit, and the
-    fused stages' kernel calls do not change."""
+    fused stages' kernel calls do not change (two_pass runs the norms'
+    moments kernel twice)."""
     from cmx_torch.models import blocks
 
     monkeypatch.setattr(blocks, "BN_VARIANT", variant)
@@ -1041,7 +1064,8 @@ def test_graph_replays_equal_eager_steps_under_bn_variants(dev, monkeypatch,
     assert rep["capture_calls"] == {
         "flat_conv3x3_mask_stats": 4, "flat_bwd_mega": 4,
         "spark_loss_pallas": 1, "spark_loss_bwd": 1,
-        "library_conv_channels_last": 19}
+        "library_conv_channels_last": 19, **SPARK_NORMS,
+        "norm_moments": 38 if variant == "two_pass" else 19}
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
@@ -1197,6 +1221,10 @@ def test_graph_replays_the_span_markers_in_capture_order(dev, monkeypatch):
     assert replayed == captured * 2
 
 
+CMUNET_NORMS = {"norm_kernel_channels_last": 36, "norm_moments": 36,
+                "norm_apply": 36, "norm_grad_sums": 26, "norm_grad_input": 26}
+
+
 def test_graph_runs_cmunet_convolutions_channels_last(dev):
     """A CM-UNet step (full width, bf16, view 32, batch 4) on the card.
     Its eager first step, profiled: cuDNN's layout transposes (nchwToNhwc,
@@ -1204,7 +1232,9 @@ def test_graph_runs_cmunet_convolutions_channels_last(dev):
     channels (the stem's input, the heads' outputs), which cuDNN pads to
     its NHWC kernels' channel multiple in either layout. The captured step
     holds 46 library convolutions, all channels-last (`capture_calls`: the
-    online encoder's 10, two decoders' 13 each, the target encoder's 10);
+    online encoder's 10, two decoders' 13 each, the target encoder's 10),
+    and 36 batch norms through the norm kernels on channels-last rows
+    (10, 8 each, 10; the target's without a backward);
     its replays run cuDNN's convolutions and no other transposes. An eager
     backward's gradients come back contiguous in their parameters'
     shapes."""
@@ -1237,7 +1267,8 @@ def test_graph_runs_cmunet_convolutions_channels_last(dev):
                 (k, op.name, op.input_shapes)
             eager.append(k)
     graph.step(state, idxs[1])  # the capture, then the first replay
-    assert graph.report["capture_calls"] == {"library_conv_channels_last": 46}
+    assert graph.report["capture_calls"] == {
+        "library_conv_channels_last": 46, **CMUNET_NORMS}
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         for idx in idxs[2:]:
@@ -1257,3 +1288,160 @@ def test_graph_runs_cmunet_convolutions_channels_last(dev):
                                 params)
     for n, p, gr in zip(names, params, grads):
         assert gr.is_contiguous() and gr.shape == p.shape, n
+
+
+# ------------------------------------------------------------ norm kernels
+
+NORM_SHAPES = [  # (B, C, H, W, channels_last, mask dtype or None)
+    (128, 64, 224, 224, True, torch.bfloat16),  # cmunet-b128, level 1
+    (256, 64, 224, 224, True, None),            # moco-b256-graph, level 1
+    (256, 1024, 14, 14, True, None),            # its bottleneck
+    (128, 512, 28, 28, True, torch.bfloat16),
+    (1, 3, 5, 7, True, torch.bfloat16),         # B 1, C % 8, a short group
+    (2, 96, 13, 11, True, torch.float32),       # 12 groups: TY 21
+    (3, 520, 6, 6, True, None),                 # 65 groups: three y blocks
+    (128, 64, 256, 256, False, torch.float32),  # spark-b128-fused densify
+    (128, 128, 128, 128, False, torch.float32),
+    (1, 8, 9, 9, False, torch.bfloat16),        # H W % 8: scalar units
+    (2, 1024, 16, 16, False, None),
+]
+
+
+def _norm_operands(dev, B, C, H, W, channels_last, mdtype, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (rnd(B, C, H, W) * 2 + 3).to(dtype).contiguous(memory_format=fmt)
+    dy = rnd(B, C, H, W).to(dtype).contiguous(memory_format=fmt)
+    m = None if mdtype is None else (
+        torch.rand((B, 1, H, W), generator=g, device=dev) > 0.35).to(mdtype)
+    vecs = [rnd(C) for _ in range(6)]
+    return x, dy, m, vecs
+
+
+def _sums_close(got, ref):
+    c = (ref.numel() - (ref.numel() % 2)) // 2
+    for a, b in ((got[:c], ref[:c]), (got[c:2 * c], ref[c:2 * c])):
+        assert _rel(a, b) <= 1e-5
+    assert torch.equal(got[2 * c:], ref[2 * c:])  # the count
+
+
+@pytest.mark.parametrize("B,C,H,W,channels_last,mdtype", NORM_SHAPES)
+def test_norm_kernels_match_plain(dev, B, C, H, W, channels_last, mdtype):
+    dtypes = [torch.bfloat16] + ([torch.float32] if B * H * W < 2 ** 16
+                                 else [])
+    for dtype in dtypes:
+        x, dy, m, (s, inv, shift, mean, k1, k2) = _norm_operands(
+            dev, B, C, H, W, channels_last, mdtype, dtype)
+        inv_t, shift_t = inv.to(dtype), shift.to(dtype)
+        n0 = [w.launches for w in bo.WRAPPERS]
+        _sums_close(bo.norm_moments(x, m, s), bo.norm_moments_plain(x, m, s))
+        for relu in (True, False):
+            y = bo.norm_apply(x, m, inv_t, shift_t, relu)
+            assert y.dtype == dtype and y.stride() == x.stride()
+            assert torch.equal(y, bo.norm_apply_plain(x, m, inv_t, shift_t,
+                                                      relu))
+            _sums_close(
+                bo.norm_grad_sums(dy, x, m, inv_t, shift_t, mean, relu),
+                bo.norm_grad_sums_plain(dy, x, m, inv_t, shift_t, mean, relu))
+            dx = bo.norm_grad_input(dy, x, m, inv_t, shift_t, mean, inv, k1,
+                                    k2, relu)
+            assert dx.dtype == dtype and dx.stride() == x.stride()
+            assert torch.equal(dx, bo.norm_grad_input_plain(
+                dy, x, m, inv_t, shift_t, mean, inv, k1, k2, relu))
+        assert [w.launches - n for w, n in zip(bo.WRAPPERS, n0)] == \
+            [1, 2, 2, 2]
+
+
+def test_norm_kernels_give_the_same_bits_twice(dev):
+    x, dy, m, (s, inv, shift, mean, k1, k2) = _norm_operands(
+        dev, 128, 128, 112, 112, True, torch.bfloat16, torch.bfloat16)
+    inv_t, shift_t = inv.to(torch.bfloat16), shift.to(torch.bfloat16)
+    for run in (lambda: bo.norm_moments(x, m, s),
+                lambda: bo.norm_grad_sums(dy, x, m, inv_t, shift_t, mean,
+                                          True),
+                lambda: bo.norm_moments(x.contiguous(), None, s)):
+        assert torch.equal(run(), run())
+
+
+def test_norm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((2, 8, 4, 4), dtype=torch.bfloat16, device=dev)
+    s = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):  # neither layout
+        bo.norm_moments(x[:, :, :, ::2], None, s)
+    with pytest.raises(TypeError):
+        bo.norm_moments(x.half(), None, s)
+    with pytest.raises(ValueError):  # a mask of another shape
+        bo.norm_moments(x, torch.ones((2, 1, 4, 2), device=dev), s)
+    with pytest.raises(ValueError):
+        bo.norm_moments(x, torch.ones((2, 1, 4, 4)), s)  # on the CPU
+
+
+def test_norm_on_the_card_runs_the_kernels_or_raises(dev):
+    """On the card MaskedBatchNorm leaves only fp64 to its plain
+    composition: fp16, a mask of another shape and a module dtype other
+    than x's raise; x of other strides runs the kernels channels-last, the
+    same bits as its channels-last copy."""
+    from cmx_torch.models import blocks
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 8, 6, 4), generator=g, device=dev) + 1
+    m = (torch.rand((2, 1, 6, 4), generator=g, device=dev) > 0.3).float()
+    before = dict(blocks.NORM_CALLS)
+    with pytest.raises(TypeError):
+        blocks.MaskedBatchNorm(8).to(dev).train()(x.half(), m)
+    with pytest.raises(ValueError):
+        blocks.MaskedBatchNorm(8).to(dev).train()(x, m[:, :, :, :2])
+    with pytest.raises(TypeError):
+        blocks.MaskedBatchNorm(8, torch.bfloat16).to(dev).train()(x, m)
+    assert blocks.NORM_CALLS == before
+    blocks.MaskedBatchNorm(8).to(dev).train()(x.double(), m)
+    assert blocks.NORM_CALLS["norm_plain"] == before["norm_plain"] + 1
+    strided = x.transpose(2, 3).contiguous().transpose(2, 3)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    outs = [blocks.MaskedBatchNorm(8).to(dev).train()(t, m, relu=True)
+            for t in (strided, cl)]
+    assert blocks.NORM_CALLS["norm_kernel_channels_last"] == \
+        before["norm_kernel_channels_last"] + 2
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_cmunet_b128_step_runs_every_norm_through_the_kernels(dev):
+    """A CM-UNet step at cmunet-b128's shape (bf16, batch 128 of 224^2
+    views from 256^2 images) captured as a CUDA graph (under
+    set_sync_debug_mode("error")): its 36 batch norms ran through the
+    norm kernels on channels-last rows, none plain; one replay is
+    finite."""
+    from cmx_torch.ssl.cmunet import CMUNetOnline, make_cmunet_task
+    from cmx_torch.train.graph import StepGraph
+    from cmx_torch.train.optim import make_optimizer
+    from cmx_torch.train.state import TrainState
+    from cmx_torch.train.trainer import make_train_step
+
+    torch.cuda.empty_cache()
+    model = CMUNetOnline(torch.bfloat16, 224)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    task, _ = make_cmunet_task(model, view_size=224)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tx = make_optimizer("adamw", 1e-4, 0.05,
+                        named_params=model.named_parameters())
+    state = TrainState.create(model=model, tx=tx, extra=task.init_extra(g))
+    corpus = torch.rand((160, 256, 256), generator=g, device=dev)
+    graph = StepGraph(make_train_step(task, tx).body,
+                      lambda idx: corpus.index_select(0, idx), dev)
+    idxs = [torch.randperm(160, generator=g, device=dev)[:128]
+            for _ in range(3)]
+    graph.step(state, idxs[0])  # eager
+    graph.step(state, idxs[1])  # the capture, then the first replay
+    rows = graph.step(state, idxs[2])
+    torch.cuda.synchronize()
+    calls = graph.report["capture_calls"]
+    assert "norm_plain" not in calls
+    assert {k: calls.get(k) for k in CMUNET_NORMS} == CMUNET_NORMS
+    assert bool(torch.isfinite(rows).all())
+    del graph, state, model
+    torch.cuda.empty_cache()

@@ -320,5 +320,8 @@ def test_launch_counts_name_every_kernel_wrapper():
         "flat_conv3x3_mask_stats", "flat_bwd_mega", "spark_loss_pallas",
         "spark_loss_bwd", "crop_resize_pallas", "bn_relu_mask_pallas",
         "conv_stem_stats", "conv3x3_mask_stats", "bwd_mega", "span_mark",
-        "library_conv_channels_last", "library_conv_channels_first"])
+        "norm_moments", "norm_apply", "norm_grad_sums", "norm_grad_input",
+        "library_conv_channels_last", "library_conv_channels_first",
+        "norm_kernel_channels_last", "norm_kernel_channels_first",
+        "norm_plain"])
     assert all(isinstance(v, int) for v in counts.values())
